@@ -1,0 +1,138 @@
+"""Weights carried from the JAX package's parameter tree to the port.
+
+`state_dict_from_jax(params)` maps a flax `UVHandDETR` tree
+(`{'params': ...}` of numpy arrays, two-stage with box refinement) onto the
+port's `state_dict`, whose names are the upstream reference's state-dict
+names. It is the exact inverse of the JAX package's
+`convert_reference_detr`:
+
+  backbone/*                       -> backbone.0.body.*  (torchvision names)
+  input_proj{i}/conv, /gn          -> input_proj.{i}.0, .1
+  transformer/encoder_layer{i}/*   -> transformer.encoder.layers.{i}.*
+  transformer/decoder_layer{i}/*   -> transformer.decoder.layers.{i}.*
+      (flax query/key/value/out kernels (in, heads, head_dim) joined into
+       torch's in_proj_weight / out_proj)
+  transformer/pos_trans1/2/3       -> transformer.pos_trans.0/2/4
+  transformer/cls_head{i}          -> cls_embed.{i}
+  transformer/(obj_)key_head{i}/layer{j} -> (obj_)key_embed.{i}.layers.{j}
+  mano_pose_head (one module)      -> mano_pose_embed.{0..n} (likewise beta,
+                                      cams, rot, rad: the reference
+                                      registers the same module n times)
+
+Dense kernels (in, out) are transposed to torch's (out, in); convs go
+HWIO -> OIHW.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_SHARED_HEADS = (
+    ("mano_pose_head", "mano_pose_embed"),
+    ("mano_beta_head", "mano_beta_embed"),
+    ("hand_cam_head", "hand_cam"),
+    ("obj_cam_head", "obj_cam"),
+    ("obj_rot_head", "obj_rot"),
+    ("obj_rad_head", "obj_rad"),
+)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _count(tree: dict, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit())
+
+
+def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """Flax `{'params': ...}` tree (or its inner dict) -> port state_dict."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def linear(dst, node):
+        sd[f"{dst}.weight"] = _t(np.asarray(node["kernel"]).T)
+        sd[f"{dst}.bias"] = _t(node["bias"])
+
+    def norm(dst, node):
+        sd[f"{dst}.weight"] = _t(node["scale"])
+        sd[f"{dst}.bias"] = _t(node["bias"])
+
+    def conv(dst, node):
+        sd[f"{dst}.weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in node:
+            sd[f"{dst}.bias"] = _t(node["bias"])
+
+    def frozen_bn(dst, node):
+        sd[f"{dst}.weight"] = _t(node["scale"])
+        sd[f"{dst}.bias"] = _t(node["bias"])
+        sd[f"{dst}.running_mean"] = _t(node["mean"])
+        sd[f"{dst}.running_var"] = _t(node["var"])
+
+    # backbone: torchvision ResNet-50 under the Joiner's slot 0
+    bb, body = p["backbone"], "backbone.0.body"
+    conv(f"{body}.conv1", bb["conv1"])
+    frozen_bn(f"{body}.bn1", bb["bn1"])
+    for name in sorted(k for k in bb if k.startswith("layer")):
+        li, bi = name[len("layer"):].split("_")
+        dst = f"{body}.layer{li}.{bi}"
+        for ci in (1, 2, 3):
+            conv(f"{dst}.conv{ci}", bb[name][f"conv{ci}"])
+            frozen_bn(f"{dst}.bn{ci}", bb[name][f"bn{ci}"])
+        if "down_conv" in bb[name]:
+            conv(f"{dst}.downsample.0", bb[name]["down_conv"])
+            frozen_bn(f"{dst}.downsample.1", bb[name]["down_bn"])
+
+    for i in range(_count(p, "input_proj")):
+        conv(f"input_proj.{i}.0", p[f"input_proj{i}"]["conv"])
+        norm(f"input_proj.{i}.1", p[f"input_proj{i}"]["gn"])
+
+    t = p["transformer"]
+    sd["transformer.level_embed"] = _t(t["level_embed"])
+    msda = ("sampling_offsets", "attention_weights", "value_proj", "output_proj")
+    for i in range(_count(t, "encoder_layer")):
+        src, dst = t[f"encoder_layer{i}"], f"transformer.encoder.layers.{i}"
+        for lin in msda:
+            linear(f"{dst}.self_attn.{lin}", src["self_attn"][lin])
+        for n in ("norm1", "norm2"):
+            norm(f"{dst}.{n}", src[n])
+        for lin in ("linear1", "linear2"):
+            linear(f"{dst}.{lin}", src[lin])
+    n_dec = _count(t, "decoder_layer")
+    for i in range(n_dec):
+        src, dst = t[f"decoder_layer{i}"], f"transformer.decoder.layers.{i}"
+        for lin in msda:
+            linear(f"{dst}.cross_attn.{lin}", src["cross_attn"][lin])
+        mha = src["self_attn"]
+        d = np.asarray(mha["query"]["kernel"]).shape[0]
+        sd[f"{dst}.self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(mha[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
+        sd[f"{dst}.self_attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(mha[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+        sd[f"{dst}.self_attn.out_proj.weight"] = _t(np.asarray(mha["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{dst}.self_attn.out_proj.bias"] = _t(mha["out"]["bias"])
+        for n in ("norm1", "norm2", "norm3"):
+            norm(f"{dst}.{n}", src[n])
+        for lin in ("linear1", "linear2"):
+            linear(f"{dst}.{lin}", src[lin])
+
+    linear("transformer.enc_output", t["enc_output"])
+    norm("transformer.enc_output_norm", t["enc_output_norm"])
+    for j, name in ((0, "pos_trans1"), (2, "pos_trans2"), (4, "pos_trans3")):
+        linear(f"transformer.pos_trans.{j}", t[name])
+    norm("transformer.pos_trans_norm", t["pos_trans_norm"])
+    sd["transformer.two_stage_learn_xy.weight"] = _t(np.asarray(t["two_stage_learn_xy"]).reshape(1, -1))
+
+    num_pred = n_dec + 1  # two-stage: the extra head is the encoder's
+    for i in range(num_pred):
+        linear(f"cls_embed.{i}", t[f"cls_head{i}"])
+        for src, dst in (("key_head", "key_embed"), ("obj_key_head", "obj_key_embed")):
+            for j in range(3):
+                linear(f"{dst}.{i}.layers.{j}", t[f"{src}{i}"][f"layer{j}"])
+    for flax_name, torch_name in _SHARED_HEADS:
+        for i in range(num_pred):
+            linear(f"{torch_name}.{i}", p[flax_name])
+    return sd
