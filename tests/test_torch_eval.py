@@ -41,6 +41,8 @@ from uvhand_tpu_torch.geometry import mano, objects
 from uvhand_tpu_torch.losses.criterion import select_queries
 from uvhand_tpu_torch.models.detr import UVHandDETR
 
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
+
 CFG = dict(num_queries=12, num_encoder_layers=1, num_decoder_layers=2, d_model=64,
            n_heads=4, dim_feedforward=128)
 

@@ -56,6 +56,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     for build in (lambda: UVHandDETR(num_queries=4, num_encoder_layers=1, num_decoder_layers=1),
                   lambda: mano.synthetic_mano(0),
                   lambda: objects.synthetic_object_bank(0),
-                  lambda: engine.make_eval_step(None, None, None, None)):
+                  lambda: engine.make_eval_step(None, None, None, None),
+                  lambda: engine.make_fused_train_step(None, None, None, None, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

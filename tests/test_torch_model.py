@@ -23,6 +23,8 @@ from uvhand_tpu_torch.models import posenc
 from uvhand_tpu_torch.models.detr import UVHandDETR, resize_mask
 from uvhand_tpu_torch.models.transformer import _class_masks
 
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
+
 ENC, DEC, QUERIES, RES = 2, 2, 50, 128
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -18,16 +18,21 @@ RESNET50_STRIDES = (8, 16, 32)
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """BatchNorm with frozen statistics and affine params (buffers, like the
-    reference's `FrozenBatchNorm2d`), eps 1e-5."""
+    """BatchNorm that never updates its statistics from the batch, eps 1e-5,
+    under the reference's `FrozenBatchNorm2d` names.
+
+    Its four tensors are parameters: the JAX package labels every leaf of
+    its tree for the optimizer, so its AdamW trains all four at the
+    backbone's rate, and the port is held against it. (The reference keeps
+    them as frozen buffers; that divergence belongs to the JAX package.)"""
 
     def __init__(self, n: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(n))
-        self.register_buffer("bias", torch.zeros(n))
-        self.register_buffer("running_mean", torch.zeros(n))
-        self.register_buffer("running_var", torch.ones(n))
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.running_mean = nn.Parameter(torch.zeros(n))
+        self.running_var = nn.Parameter(torch.ones(n))
 
     def forward(self, x):
         inv = self.weight * torch.reciprocal(torch.sqrt(self.running_var + self.eps))

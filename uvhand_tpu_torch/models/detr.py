@@ -1,14 +1,18 @@
 """UVHand DETR: ResNet-50 + deformable transformer + output heads.
 
 Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`,
-`backbone="resnet50"`, two-stage with box refinement, eval mode:
+`backbone="resnet50"`, two-stage with box refinement:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
     stride-2 3x3 level from the last backbone map,
   - heads per decoder layer: class and keypoints (used inside the
     transformer), mano pose 48 / beta 10, hand cam 3, obj cam 3, obj rot 3,
     obj radian 1 (the non-class heads share weights across layers),
   - per-layer 42-d keypoint outputs and the encoder's interm outputs in
-    [-1, 1] via sigmoid*2-1.
+    [-1, 1] via sigmoid*2-1,
+  - train mode (`model.train()`): dropout in the transformer and the
+    encoder feature mask (each input-projected element kept with
+    probability 1 - feature_mask_ratio, with no rescale), both drawn from
+    the `torch.Generator` passed to `forward`.
 
 Images enter NHWC like the JAX model and are permuted to NCHW for the
 backbone. The output dict has the JAX model's keys (`stacked`,
@@ -28,7 +32,7 @@ from ..device import resolve_device
 from ..ops.msda import MSDeformAttn
 from .backbones.resnet import RESNET50_CHANNELS, ResNet50
 from .posenc import sine_position_encoding
-from .transformer import MLP, DeformableTransformer
+from .transformer import MLP, DeformableTransformer, keep_mask
 
 
 def resize_mask(mask: torch.Tensor, size) -> torch.Tensor:
@@ -64,12 +68,14 @@ class UVHandDETR(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 1024, num_feature_levels: int = 4,
                  dec_n_points: int = 4, enc_n_points: int = 4,
+                 dropout: float = 0.1, feature_mask_ratio: float = 0.3,
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
         (the CUDA card unless `device="cpu"` is given), in eval mode."""
         super().__init__()
         device = resolve_device(device)
         self.d_model = d_model
+        self.feature_mask_ratio = feature_mask_ratio
         self.num_decoder_layers = num_decoder_layers
         self.num_feature_levels = num_feature_levels
         self.backbone = nn.ModuleList([_Joiner0()])
@@ -86,7 +92,7 @@ class UVHandDETR(nn.Module):
             dim_feedforward=dim_feedforward,
             num_feature_levels=num_feature_levels,
             dec_n_points=dec_n_points, enc_n_points=enc_n_points,
-            num_queries=num_queries)
+            num_queries=num_queries, dropout=dropout)
         num_pred = num_decoder_layers + 1  # two-stage: the extra one is the encoder head
         self.cls_embed = nn.ModuleList(nn.Linear(d_model, num_classes) for _ in range(num_pred))
         self.key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
@@ -123,25 +129,35 @@ class UVHandDETR(nn.Module):
         for head in self.cls_embed:
             head.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
-    def level_features(self, images: torch.Tensor, image_mask: torch.Tensor | None = None):
+    def _feature_mask(self, x: torch.Tensor, generator: torch.Generator | None):
+        if not self.training or self.feature_mask_ratio <= 0:
+            return x
+        # the reference applies no 1/keep rescale
+        return x * keep_mask(x.shape, 1.0 - self.feature_mask_ratio, generator, x.device)
+
+    def level_features(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None):
         """(srcs (B, C, H_l, W_l), masks (B, H_l, W_l), pos (B, H_l, W_l, C))
         for every level, from NHWC images."""
         feats = self.backbone[0].body(images.permute(0, 3, 1, 2))
         B, H, W, _ = images.shape
         if image_mask is None:
             image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
-        srcs = [proj(f) for proj, f in zip(self.input_proj, feats)]
+        srcs = [self._feature_mask(proj(f), generator) for proj, f in zip(self.input_proj, feats)]
         for lvl in range(len(feats), self.num_feature_levels):
-            srcs.append(self.input_proj[lvl](feats[-1] if lvl == len(feats) else srcs[-1]))
+            src = self.input_proj[lvl](feats[-1] if lvl == len(feats) else srcs[-1])
+            srcs.append(self._feature_mask(src, generator))
         masks = [resize_mask(image_mask, s.shape[-2:]) for s in srcs]
         poses = [sine_position_encoding(m, self.d_model // 2) for m in masks]
         return srcs, masks, poses
 
-    def forward(self, images: torch.Tensor, image_mask: torch.Tensor | None = None):
-        """images (B, H, W, 3) NHWC; image_mask (B, H, W) True = padding."""
-        srcs, masks, poses = self.level_features(images, image_mask)
+    def forward(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        """images (B, H, W, 3) NHWC; image_mask (B, H, W) True = padding;
+        `generator` feeds dropout and the feature mask in train mode."""
+        srcs, masks, poses = self.level_features(images, image_mask, generator)
         t_out = self.transformer(srcs, masks, poses, self.cls_embed,
-                                 self.key_embed, self.obj_key_embed)
+                                 self.key_embed, self.obj_key_embed, generator)
         hs = t_out["hs"]  # (n_dec, B, Q, C)
         pose = self.mano_pose_embed[0](hs)
         beta = self.mano_beta_embed[0](hs)

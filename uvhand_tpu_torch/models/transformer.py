@@ -12,7 +12,11 @@ two-stage, box-refine path of `uvhand_tpu/models/transformer.py`.
     frozen); reference points live in [-1, 1] via `sigmoid()*2-1`, a parity
     quirk of the reference.
 
-Eval only: there is no dropout. Parameter names follow the reference state
+In train mode (`module.train()`) dropout is on, as in the JAX package's
+`Drop` and its decoder self-attention's weight dropout, drawing from the
+`torch.Generator` passed to `forward` (never the global RNG); the decoder's
+reference points and the two-stage proposals are detached where the JAX
+transformer stops the gradient. Parameter names follow the reference state
 dict (`transformer.encoder.layers.{i}.*`, `transformer.pos_trans.{0,2,4}`...).
 The class and keypoint heads belong to `UVHandDETR` (reference names
 `cls_embed.{i}`, `key_embed.{i}`...) and are passed into `forward`, since the
@@ -25,6 +29,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msda import MSDeformAttn
@@ -54,42 +59,98 @@ class MLP(nn.Module):
         return x
 
 
+def keep_mask(shape, keep: float, generator: torch.Generator | None, device):
+    """Bernoulli(keep) mask drawn from `generator`; train-mode randomness
+    never falls back to the global RNG."""
+    if generator is None:
+        raise ValueError("train-mode randomness draws from an explicit torch.Generator; "
+                         "pass generator=")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+class Drop(nn.Module):
+    """Inverted dropout in train mode (keep each element with probability
+    1 - rate, scale the kept ones by 1 / (1 - rate)); the identity in eval
+    mode. Port of the JAX package's `Drop`."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: torch.Generator | None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(keep_mask(x.shape, keep, generator, x.device), x / keep, 0.0)
+
+
+def self_attention(mha: nn.MultiheadAttention, q, v, rate: float,
+                   generator: torch.Generator | None):
+    """Multi-head attention from `mha`'s own `in_proj_*` / `out_proj`, as
+    flax's `MultiHeadDotProductAttention` computes it: queries scaled by
+    1/sqrt(head_dim) before the product, and in train mode dropout on the
+    softmaxed weights with ONE (Lq, Lk) keep mask broadcast over batch and
+    heads (flax's `broadcast_dropout=True`)."""
+    B, N, E = q.shape
+    h = mha.num_heads
+    w_q, w_k, w_v = mha.in_proj_weight.chunk(3)
+    b_q, b_k, b_v = mha.in_proj_bias.chunk(3)
+
+    def heads(x, w, b):
+        return F.linear(x, w, b).view(B, -1, h, E // h).transpose(1, 2)  # (B, h, n, hd)
+
+    qh = heads(q, w_q, b_q) / math.sqrt(E // h)
+    weights = torch.softmax(qh @ heads(q, w_k, b_k).transpose(-1, -2), -1)
+    if mha.training and rate > 0.0:
+        keep = 1.0 - rate
+        weights = weights * (keep_mask(weights.shape[-2:], keep, generator, q.device) / keep)
+    out = (weights @ heads(v, w_v, b_v)).transpose(1, 2).reshape(B, N, E)
+    return mha.out_proj(out)
+
+
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4):
+    def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
+                 dropout=0.1):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.drop = Drop(dropout)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, generator=None):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
-        src = self.norm1(src + src2)
-        ff = self.linear2(torch.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+        src = self.norm1(src + self.drop(src2, generator))
+        ff = self.linear2(self.drop(torch.relu(self.linear1(src)), generator))
+        return self.norm2(src + self.drop(ff, generator))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4):
+    def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
+                 dropout=0.1):
         super().__init__()
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        # a container of the reference's parameter names; `self_attention`
+        # computes it
         self.self_attn = nn.MultiheadAttention(d_model, n_heads, batch_first=True)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.drop = Drop(dropout)
 
-    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask):
+    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
+                generator=None):
         q = tgt + query_pos
-        tgt2 = self.self_attn(q, q, tgt, need_weights=False)[0]
-        tgt = self.norm2(tgt + tgt2)
+        tgt2 = self_attention(self.self_attn, q, tgt, self.drop.rate, generator)
+        tgt = self.norm2(tgt + self.drop(tgt2, generator))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm3(tgt + ff)
+        tgt = self.norm1(tgt + self.drop(tgt2, generator))
+        ff = self.linear2(self.drop(torch.relu(self.linear1(tgt)), generator))
+        return self.norm3(tgt + self.drop(ff, generator))
 
 
 class _Layers(nn.Module):
@@ -143,16 +204,18 @@ def _class_masks(class_indices: torch.Tensor):
 class DeformableTransformer(nn.Module):
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
-                 dec_n_points=4, enc_n_points=4, num_queries=300):
+                 dec_n_points=4, enc_n_points=4, num_queries=300, dropout=0.1):
         super().__init__()
         self.d_model = d_model
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.encoder = _Layers(
-            EncoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, enc_n_points)
+            EncoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, enc_n_points,
+                         dropout)
             for _ in range(num_encoder_layers))
         self.decoder = _Layers(
-            DecoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, dec_n_points)
+            DecoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, dec_n_points,
+                         dropout)
             for _ in range(num_decoder_layers))
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         self.enc_output = nn.Linear(d_model, d_model)
@@ -202,6 +265,7 @@ class DeformableTransformer(nn.Module):
         cls_embed: nn.ModuleList,  # num_decoder_layers + 1 class heads
         key_embed: nn.ModuleList,  # hand keypoint MLPs
         obj_key_embed: nn.ModuleList,  # object keypoint MLPs
+        generator: torch.Generator | None = None,  # dropout draws (train mode)
     ):
         spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
         B = srcs[0].shape[0]
@@ -220,7 +284,7 @@ class DeformableTransformer(nn.Module):
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         memory = src_flat
         for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat, generator)
 
         # ---- two-stage decoder inputs ----
         nd = self.num_decoder_layers
@@ -241,9 +305,11 @@ class DeformableTransformer(nn.Module):
 
         cls_idx = torch.gather(enc_cls.argmax(-1), 1, topk_idx)
         hand_m, obj_m = _class_masks(cls_idx)
-        ref_unact = take(out_props)
-        ref_unact = torch.where(obj_m[..., None], take(enc_obj), ref_unact)
-        ref_unact = torch.where(hand_m[..., None], take(enc_hand), ref_unact)
+        # the decoder's initial references carry no gradient back into the
+        # encoder heads (they train through the interm outputs only)
+        ref_unact = take(out_props).detach()
+        ref_unact = torch.where(obj_m[..., None], take(enc_obj).detach(), ref_unact)
+        ref_unact = torch.where(hand_m[..., None], take(enc_hand).detach(), ref_unact)
         reference_points = torch.sigmoid(ref_unact) * 2 - 1  # [-1, 1] quirk
 
         pe = proposal_pos_embed(ref_unact)
@@ -258,20 +324,22 @@ class DeformableTransformer(nn.Module):
         for lid, layer in enumerate(self.decoder.layers):
             refs_in.append(ref)
             output = layer(output, query_pos, ref[:, :, None] * vr42, memory,
-                           spatial_shapes, mask_flat)
+                           spatial_shapes, mask_flat, generator)
             hs_list.append(output)
             logits = cls_embed[lid](output)
             logits_list.append(logits)
             hand_m, obj_m = _class_masks(logits.argmax(-1))
             d_hand = key_embed[lid](output)
             d_obj = obj_key_embed[lid](output)
-            # per-layer keypoint outputs: delta + inverse_sigmoid(ref input)
+            # per-layer keypoint outputs: delta + inverse_sigmoid(ref input);
+            # the ref input is detached, so the keypoint heads train through
+            # these outputs only
             base = inverse_sigmoid(ref)
             hand_keys.append(torch.sigmoid(d_hand + base) * 2 - 1)
             obj_keys.append(torch.sigmoid(d_obj + base) * 2 - 1)
             delta = torch.where(hand_m[..., None], d_hand,
                                 torch.where(obj_m[..., None], d_obj, 0.0))
-            ref = torch.sigmoid(base + delta) * 2 - 1
+            ref = (torch.sigmoid(base + delta) * 2 - 1).detach()
 
         return {
             "hs": torch.stack(hs_list),  # (n_dec, B, Q, C)

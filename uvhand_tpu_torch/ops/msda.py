@@ -13,9 +13,14 @@ bilinearly at pixel (x * W - 0.5, y * H - 0.5) -- grid_sample with
 align_corners=False and zero padding -- and the samples are summed with the
 attention weights, accumulating in float32.
 
-`ms_deform_attn(impl="auto")` launches the hand-written CUDA kernel
-(`msda_cuda.py`, `csrc/msda_fwd.cu`) for a CUDA tensor and runs the plain
-version `ms_deform_attn_torch` for a CPU tensor.
+`ms_deform_attn(impl="auto")` launches the hand-written CUDA kernels
+(`msda_cuda.py`: `csrc/msda_fwd.cu` forward, `csrc/msda_bwd.cu` backward) for
+a CUDA tensor and runs the plain versions `ms_deform_attn_torch` /
+`ms_deform_attn_torch_backward` for a CPU tensor. When a gradient is needed
+the op goes through `MSDeformAttnFunction`, whose backward is the backward
+kernel or its plain version; autograd never differentiates the plain
+forward itself, whose `abs` would give the far corner of an integer-exact
+sample a gradient that the JAX package gives 0.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ def ms_deform_attn_torch(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of the CUDA kernel: 4-corner gathers, zero padding,
-    float32 accumulation.
+    float32 accumulation (float64 for float64 inputs).
 
     It repeats the kernel's arithmetic step for step -- the same expressions,
     each rounded on its own, summed over levels, points and the four corners
@@ -53,14 +58,15 @@ def ms_deform_attn_torch(
     # row of value[b, s, m] in vflat is (b * S + s) * M + m
     base = (torch.arange(B, device=dev).view(B, 1, 1) * (S * M)
             + torch.arange(M, device=dev).view(1, 1, M))
-    loc = sampling_locations.float()
-    acc = torch.zeros(B, Lq, M, D, dtype=torch.float32, device=dev)
+    ft = torch.promote_types(value.dtype, torch.float32)
+    loc = sampling_locations.to(ft)
+    acc = torch.zeros(B, Lq, M, D, dtype=ft, device=dev)
     start = 0
     for lvl, (H, W) in enumerate(spatial_shapes):
         for p in range(P):
             px = loc[:, :, :, lvl, p, 0] * W - 0.5
             py = loc[:, :, :, lvl, p, 1] * H - 0.5
-            a = attention_weights[:, :, :, lvl, p].float()
+            a = attention_weights[:, :, :, lvl, p].to(ft)
             x0 = torch.floor(px)
             y0 = torch.floor(py)
             for dy in (0, 1):
@@ -73,9 +79,121 @@ def ms_deform_attn_torch(
                     w = torch.where(valid, a * (hy * hx), 0.0)
                     cell = torch.where(valid, cy * W + cx, 0.0).long()
                     rows = base + (start + cell) * M
-                    acc = acc + w[..., None] * vflat[rows].float()
+                    acc = acc + w[..., None] * vflat[rows].to(ft)
         start += H * W
     return acc.to(value.dtype).reshape(B, Lq, M * D)
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the backward kernel's order: per chunk of
+    32 channels (zero-padded) the warp's xor butterfly 16, 8, 4, 2, 1, then
+    the chunks in order."""
+    pad = (-x.shape[-1]) % 32
+    if pad:
+        x = F.pad(x, (0, pad))
+    x = x.reshape(x.shape[:-1] + (-1, 32))
+    for off in (16, 8, 4, 2, 1):
+        x = x[..., :off] + x[..., off:2 * off]
+    total = x[..., 0, 0]
+    for c in range(1, x.shape[-2]):
+        total = total + x[..., c, 0]
+    return total
+
+
+def ms_deform_attn_torch_backward(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the CUDA backward kernel -> (dvalue in the value's
+    type, dloc float32, dattn in the attention's type); sums in float32
+    (float64 throughout for float64 inputs).
+
+    Gather form with the forward's corner loop: per in-map corner c the dot
+    <g, v_c> (in the kernel's order, `_warp_sum`), then
+    dattn = sum_c w_c dot_c, dpx = -a sum_c sx_c hy_c dot_c with
+    sx_c = sign(px - cx_c) where the corner's x tent is > 0 (so sign(0) = 0
+    at a kink, as in the JAX backward), likewise dpy, and
+    dloc = (dpx * W, dpy * H). dvalue gathers a * w_c * g back onto the
+    corner rows with `index_add_`. dattn and dloc repeat the kernel's
+    arithmetic in its order; dvalue's sums are in another order (the
+    kernel's are atomics)."""
+    B, S, M, D = value.shape
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
+    dev = value.device
+    vflat = value.reshape(B * S * M, D)
+    ft = torch.promote_types(value.dtype, torch.float32)
+    g = grad_out.reshape(B, Lq, M, D).to(ft)
+    base = (torch.arange(B, device=dev).view(B, 1, 1) * (S * M)
+            + torch.arange(M, device=dev).view(1, 1, M))
+    loc = sampling_locations.to(ft)
+    dvalue = torch.zeros(B * S * M, D, dtype=ft, device=dev)
+    dloc = torch.empty(B, Lq, M, L, P, 2, dtype=ft, device=dev)
+    dattn = torch.empty(B, Lq, M, L, P, dtype=ft, device=dev)
+    zero = torch.zeros((), dtype=ft, device=dev)
+    start = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        for p in range(P):
+            px = loc[:, :, :, lvl, p, 0] * W - 0.5
+            py = loc[:, :, :, lvl, p, 1] * H - 0.5
+            a = attention_weights[:, :, :, lvl, p].to(ft)
+            x0 = torch.floor(px)
+            y0 = torch.floor(py)
+            da = gx = gy = torch.zeros_like(px)
+            for dy in (0, 1):
+                cy = y0 + dy
+                hy = 1.0 - (py - cy).abs()
+                sy = torch.where(hy > 0, torch.sign(py - cy), zero)
+                for dx in (0, 1):
+                    cx = x0 + dx
+                    hx = 1.0 - (px - cx).abs()
+                    sx = torch.where(hx > 0, torch.sign(px - cx), zero)
+                    valid = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+                    wc = hy * hx
+                    cell = torch.where(valid, cy * W + cx, 0.0).long()
+                    rows = base + (start + cell) * M
+                    dot = _warp_sum(g * vflat[rows].to(ft))
+                    da = da + torch.where(valid, wc * dot, zero)
+                    gx = gx + torch.where(valid, (sx * hy) * dot, zero)
+                    gy = gy + torch.where(valid, (sy * hx) * dot, zero)
+                    aw = torch.where(valid, a * wc, zero)
+                    dvalue.index_add_(0, rows.reshape(-1), (aw[..., None] * g).reshape(-1, D))
+            dattn[:, :, :, lvl, p] = da
+            dloc[:, :, :, lvl, p, 0] = -(a * gx) * W
+            dloc[:, :, :, lvl, p, 1] = -(a * gy) * H
+        start += H * W
+    return (dvalue.view(B, S, M, D).to(value.dtype), dloc.to(sampling_locations.dtype),
+            dattn.to(attention_weights.dtype))
+
+
+def _forward(value, spatial_shapes, loc, attn, impl):
+    if impl == "auto" and value.is_cuda:
+        return msda_cuda.ms_deform_attn_cuda(value, spatial_shapes, loc, attn)
+    return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA with a hand-written gradient: the forward and backward kernels
+    for CUDA tensors under impl='auto', the plain versions for CPU tensors
+    or under impl='torch'."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes, impl):
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes, ctx.impl = spatial_shapes, impl
+        return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        if ctx.impl == "auto" and value.is_cuda:
+            grads = msda_cuda.ms_deform_attn_backward_cuda(
+                value, ctx.spatial_shapes, loc, attn, grad_out.contiguous())
+        else:
+            grads = ms_deform_attn_torch_backward(value, ctx.spatial_shapes, loc, attn, grad_out)
+        return (*grads, None, None)
 
 
 def ms_deform_attn(
@@ -87,17 +205,17 @@ def ms_deform_attn(
 ) -> torch.Tensor:
     """Core MSDA reduction. See the module docstring for shapes.
 
-    impl: 'auto' (the CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor) or 'torch' (the plain version on any device, for holding
-    the kernel against it)."""
+    impl: 'auto' (the CUDA kernels for a CUDA tensor, the plain versions for
+    a CPU tensor) or 'torch' (the plain versions on any device, for holding
+    the kernels against them)."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if impl == "auto" and value.is_cuda:
-        return msda_cuda.ms_deform_attn_cuda(
-            value, spatial_shapes, sampling_locations, attention_weights)
-    if impl in ("auto", "torch"):
-        return ms_deform_attn_torch(
-            value, spatial_shapes, sampling_locations, attention_weights)
-    raise ValueError(f"unknown MSDA impl {impl!r}")
+    if impl not in ("auto", "torch"):
+        raise ValueError(f"unknown MSDA impl {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return MSDeformAttnFunction.apply(value, sampling_locations, attention_weights,
+                                          spatial_shapes, impl)
+    return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl)
 
 
 def directional_offset_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
