@@ -4,8 +4,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
-  2. build: compiles the MSDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu),
-     one nvcc per source, started together;
+  2. build: compiles the MSDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu,
+     csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu), one nvcc per source,
+     started together;
   3. forward kernel against its plain version (`ms_deform_attn_torch`) at
      the serving path's encoder and decoder shapes in float32 and bfloat16,
      and at an out-of-range-heavy, an odd-D and a >128-side case; times the
@@ -16,6 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      integer-exact one (every sample on a tent's kink), float32 and
      bfloat16, a >128 side in both; times it like the forward, with the
      grid_sample composition's autograd backward as the yardstick;
+  3c. the factorized kernels (msda_fac_fwd, msda_fac_bwd) against their
+     plain versions on the same kinds of cases plus a side of one: forward,
+     dattn and dloc bit-identical, dvalue within TOL; held against the
+     gather kernels on the same inputs (TOL); timed like 3 and 3b;
   4. serving path: `UVHandDETR` at full width (ResNet-50, 224x224, d=256,
      6+6 layers, 300 queries, 4 levels x 4 points, two-stage, box refine,
      float32) with seeded random weights serves three batches of 16
@@ -30,21 +35,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      train mode from the same weights and generator seed with the kernels
      and with the plain MSDA versions; loss terms and every gradient agree;
   8. training path: `engine.make_fused_train_step` (dropout 0.1, feature mask
-     0.3, AdamW lr 2e-4 / backbone 2e-5, clip 0.1) takes 4 steps on batches
+     0.3, AdamW lr 2e-4 / backbone 2e-5, clip 0.1) takes 2 steps on batches
      of 16 synthetic frames; per step every loss is finite, grad_norm is
      finite and > 0, both kernels' launch counts rise by exactly 12 and the
      parameters of every group move;
   9. train profile: host-clock times of the train stages of one step, and a
-     torch.profiler table of one step with the device's busy share.
+     torch.profiler table of one step with the device's busy share;
+  10. bf16 serving: the same model with `compute_dtype=torch.bfloat16` serves
+     3 batches; msda_fwd rises by exactly 12 per batch, no other kernel;
+  11. bf16 training: 4 steps, msda_fwd and msda_bwd each +12 per step (the
+     backward kernel's bf16 regime, the JAX package's K2), with the checks
+     of 8, and a kernel-against-plain train pass as 7;
+  12. UVHAND_MSDA_FAC=1: the bf16 serving and training paths again, through
+     the factorized kernels (msda_fac_fwd +12 per batch, +12 per step with
+     msda_fac_bwd; the gather kernels +0), serving outputs with the kernels
+     equal to those with the plain versions, and one float32 batch equal to
+     phase 5's gather-kernel run (1e-4);
+  with profile lines (device busy share, kernels, MSDA device ms) for one
+  bf16 serving batch and one bf16 train step under each formulation.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
-line before it gives every ported kernel's numbers as JSON.
+line before it is the card's name and power limit, and the one before that
+gives every ported kernel's numbers as JSON.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,7 +78,8 @@ from uvhand_tpu_torch.geometry import mano, objects
 from uvhand_tpu_torch.geometry.rotations import axis_angle_to_matrix, rotate_about_axis
 from uvhand_tpu_torch.models.detr import UVHandDETR
 from uvhand_tpu_torch.ops import msda_cuda
-from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn_torch,
+from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn_fac_torch,
+                                       ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
 from uvhand_tpu_torch.train.state import create_optimizer, label_params
 
@@ -67,6 +88,7 @@ BATCH = 16
 IMG_RES = 224
 N_BATCHES = 3
 TRAIN_STEPS = 4
+FP32_TRAIN_STEPS = 2  # fewer float32 steps, to leave time for the bf16 and FAC paths
 MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 # level shapes of a 224x224 image: strides 8, 16, 32 and the extra stride-64 level
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
@@ -75,6 +97,14 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+KEYS = ("pred_logits", "pred_hand_key", "pred_obj_key")  # the outputs held end to end
+#: every kernel wrapper by its kernel's name; each counts its launches
+KERNELS = {
+    "msda_fwd": msda_cuda.ms_deform_attn_cuda,
+    "msda_bwd": msda_cuda.ms_deform_attn_backward_cuda,
+    "msda_fac_fwd": msda_cuda.ms_deform_attn_fac_cuda,
+    "msda_fac_bwd": msda_cuda.ms_deform_attn_fac_backward_cuda,
+}
 
 
 def log(*args):
@@ -150,6 +180,30 @@ def msda_bwd_bound_ms(value, shapes, loc, attn, grad):
     # product and a sum for the dot and a product and an add for dvalue
     ops = loc[..., 0].numel() * 4 + in_map_corners(shapes, loc) * (12 + 4 * D)
     return bound_ms(2 * nbytes(value, loc, attn) + nbytes(grad), ops)
+
+
+def script_kernel_bounds():
+    """Bounds of the research scripts' TPU kernels (PERF.md rows S1, S2) at
+    each script's own shapes, on this card's rates: each is a pass over a
+    few arrays, so bytes bound it. Arithmetic only; nothing runs."""
+    f32, bf16 = 4, 2
+    B, S, M, D, LP = 16, 1045, 8, 32, 16  # scripts/bench_msda_ablation.py:1302
+    for name, vb in (("bf16", bf16), ("fp32", f32)):
+        value, loc, attn = B * S * M * D * vb, B * S * M * LP * 2 * f32, B * S * M * LP * vb
+        fwd = value + loc + attn + value  # + the output
+        bwd = 2 * (value + loc + attn) + value  # + g in; dvalue, dloc, dattn out
+        log(f"[bounds] S1 bench_msda_ablation variants ({name}): forward "
+            f"{bound_ms(fwd, 0)[0]:.4f} ms, backward {bound_ms(bwd, 0)[0]:.4f} ms (bytes)")
+    # probe_dynamic_lane_slice.py:39 reads (1048, 128) and writes (8384, 16), float32
+    log(f"[bounds] S2 probe_dynamic_lane_slice (1048x128 in, 8384x16 out, f32): "
+        f"{bound_ms(2 * 1048 * 128 * f32, 0)[0] * 1e3:.3f} us (bytes)")
+    # repro_dynamic_gather.py:9 and probe_gather_scale.py:66: indices and values
+    # read, the gathered values written, int32 / float32
+    for shape in ((1, 1408, 128), (8, 1048, 128), (1, 1048, 256), (1, 1048, 1408),
+                  (16, 1048, 1408), (128, 8, 128)):
+        n = int(np.prod(shape))
+        log(f"[bounds] S2 gather probe {'x'.join(map(str, shape))}: "
+            f"{bound_ms(3 * n * f32, 0)[0] * 1e3:.3f} us (bytes)")
 
 
 def grid_sample_msda(value, shapes, loc, attn):
@@ -303,6 +357,89 @@ def backward_kernel_phase():
     return timed, max_err
 
 
+def fac_kernel_phase():
+    """The factorized kernels against their plain versions (forward, dattn
+    and dloc bit-identical, dvalue within TOL) and against the gather
+    kernels on the same inputs (TOL: two formulations of one function)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    enc = dict(B=BATCH, Lq=sum(h * w for h, w in LEVELS), M=8, D=32, P=4, shapes=LEVELS)
+    dec = dict(enc, Lq=300)
+    exact = dict(B=2, Lq=300, M=8, D=32, P=4, shapes=((16, 32), (8, 16), (4, 8), (2, 4)))
+    one = dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((6, 5), (2, 1), (1, 1)))
+    cases = [
+        ("encoder fp32", enc, (0.0, 1.0), torch.float32, True),
+        ("decoder fp32", dec, (-1.0, 1.0), torch.float32, True),
+        ("encoder bf16", enc, (0.0, 1.0), torch.bfloat16, True),
+        ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
+        ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
+        ("out-of-range bf16", dec, (-2.0, 3.0), torch.bfloat16, False),
+        ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
+         (-0.2, 1.2), torch.float32, False),
+        ("odd D=30 bf16", dict(B=2, Lq=100, M=4, D=30, P=2, shapes=LEVELS),
+         (-0.2, 1.2), torch.bfloat16, False),
+        ("side of one fp32", one, (0.0, 1.0), torch.float32, False),
+        ("side of one bf16", one, (0.0, 1.0), torch.bfloat16, False),
+        ("integer-exact fp32", exact, (None, None), torch.float32, False),
+        ("integer-exact bf16", exact, (None, None), torch.bfloat16, False),
+    ]
+    log("[fac] factorized kernels (csrc/msda_fac_fwd.cu, msda_fac_bwd.cu) against "
+        "ms_deform_attn_fac_torch(_backward), and against the gather kernels")
+    fwd, bwd = msda_cuda.ms_deform_attn_fac_cuda, msda_cuda.ms_deform_attn_fac_backward_cuda
+    timed = {"fwd": {}, "bwd": {}}
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for name, shape, (lo, hi), dtype, is_timed in cases:
+        shp = dict(shape)
+        shapes = shp.pop("shapes")
+        value, loc, attn = msda_inputs(gen, **shp, shapes=shapes, lo=lo, hi=hi, dtype=dtype)
+        grad = torch.randn(shp["B"], shp["Lq"], shp["M"] * shp["D"], generator=gen,
+                           device="cuda").to(dtype)
+        outs = (fwd(value, shapes, loc, attn), *bwd(value, shapes, loc, attn, grad))
+        refs = (ms_deform_attn_fac_torch(value, shapes, loc, attn),
+                *ms_deform_attn_fac_torch_backward(value, shapes, loc, attn, grad))
+        gather = (msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn),
+                  *msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad))
+        torch.cuda.synchronize()
+        report = []
+        for gname, o, r, g in zip(("out", "dvalue", "dloc", "dattn"), outs, refs, gather):
+            err = float((o.float() - r.float()).abs().max())
+            scale = max(float(r.float().abs().max()), 1e-30)
+            vs_gather = float((o.float() - g.float()).abs().max()) / scale
+            exact_wanted = gname != "dvalue"
+            ok = (bool(torch.isfinite(o.float()).all()) and o.dtype == r.dtype
+                  and (err == 0.0 if exact_wanted else err / scale <= TOL[dtype])
+                  and vs_gather <= TOL[dtype])
+            report.append(f"{gname} {err:.3e} (vs gather {vs_gather:.2e})")
+            if not ok:
+                raise AssertionError(
+                    f"factorized kernel disagrees ({name}, {gname}): max_abs_err {err:.3e} "
+                    f"{'(must be 0)' if exact_wanted else f'(rel tol {TOL[dtype]:.0e})'}, "
+                    f"vs gather {vs_gather:.3e} of max (tol {TOL[dtype]:.0e})")
+            if dtype == torch.float32:
+                key = "fwd" if gname == "out" else "bwd"
+                max_err[key] = max(max_err[key], err)
+        log(f"[fac] {name}: max_abs_err vs plain " + ", ".join(report) + " ok")
+        if not is_timed:
+            continue
+        for key, kernel, plain, bound in (
+                ("fwd", lambda: fwd(value, shapes, loc, attn),
+                 lambda: ms_deform_attn_fac_torch(value, shapes, loc, attn),
+                 msda_bound_ms(value, shapes, loc, attn)),
+                ("bwd", lambda: bwd(value, shapes, loc, attn, grad),
+                 lambda: ms_deform_attn_fac_torch_backward(value, shapes, loc, attn, grad),
+                 msda_bwd_bound_ms(value, shapes, loc, attn, grad))):
+            ms, plain_ms = median_ms(kernel), median_ms(plain, iters=5)
+            timed[key][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+            log(f"[fac] {name} {key}: kernel {ms:.4f} ms (median), plain {plain_ms:.4f} ms, "
+                f"bound {bound[0]:.4f} ms ({bound[1]})")
+        gs = median_ms(lambda: grid_sample_msda(value, shapes, loc, attn))
+        leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+        out = grid_sample_msda(leaves[0], shapes, leaves[1], leaves[2])
+        gs_bwd = median_ms(lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True))
+        log(f"[fac] {name}: per-level grid_sample composition (yardstick only, not one "
+            f"library call) forward {gs:.4f} ms, autograd backward {gs_bwd:.4f} ms")
+    return timed, max_err
+
+
 # ------------------------------------------------------------ 4. main path
 
 
@@ -369,9 +506,10 @@ def synthetic_batch(rng, bank: objects.ObjectBank, B: int) -> dict:
     }
 
 
-def build_world(device):
+def build_world(device, compute_dtype=torch.float32):
     gen = torch.Generator().manual_seed(SEED)
-    model = UVHandDETR(generator=gen, device=device)  # the default: full width
+    # the default: full width
+    model = UVHandDETR(compute_dtype=compute_dtype, generator=gen, device=device)
     world = (mano.synthetic_mano(0, True, device=device),
              mano.synthetic_mano(1, False, device=device),
              objects.synthetic_object_bank(2, device=device))
@@ -385,16 +523,40 @@ def set_msda_impl(model, impl):
 
 
 def reset_counts():
-    msda_cuda.ms_deform_attn_cuda.launches = 0
-    msda_cuda.ms_deform_attn_backward_cuda.launches = 0
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
 
 
 def read_counts():
-    return (msda_cuda.ms_deform_attn_cuda.launches,
-            msda_cuda.ms_deform_attn_backward_cuda.launches)
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
 
 
-def main_path_phase(model, world, batches, card):
+def expected(per_call, calls=1):
+    """Launches of every kernel that `calls` batches or steps must make."""
+    return {name: per_call.get(name, 0) * calls for name in KERNELS}
+
+
+@contextlib.contextmanager
+def fac_formulation():
+    """UVHAND_MSDA_FAC=1 for the phase; the environment restored after it."""
+    old = os.environ.get("UVHAND_MSDA_FAC")
+    os.environ["UVHAND_MSDA_FAC"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["UVHAND_MSDA_FAC"]
+        else:
+            os.environ["UVHAND_MSDA_FAC"] = old
+
+
+SERVE = {"msda_fwd": MSDA_PER_FORWARD}
+TRAIN = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}
+SERVE_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD}
+TRAIN_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD, "msda_fac_bwd": MSDA_PER_FORWARD}
+
+
+def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE):
     step = engine.make_eval_step(model, *world, img_res=IMG_RES)
     reset_counts()
     rows, times = [], []
@@ -405,15 +567,14 @@ def main_path_phase(model, world, batches, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         rows.append({k: v.cpu().numpy() for k, v in r.items()})
-    launches, bwd_launches = read_counts()
+    counts = read_counts()
     for i, t in enumerate(times):
-        log(f"[serve] batch {i}: {t * 1e3:.3f} ms, {BATCH / t:.1f} frames/s "
-            f"(B={BATCH}, fp32, {card})")
-    if launches != MSDA_PER_FORWARD * len(batches) or bwd_launches != 0:
-        raise AssertionError(f"MSDA kernels launched {launches} (forward) and {bwd_launches} "
-                             f"(backward) times, expected {MSDA_PER_FORWARD * len(batches)} and 0")
-    log(f"[serve] MSDA kernel launches: forward {launches} ({MSDA_PER_FORWARD} per batch), "
-        f"backward {bwd_launches}")
+        log(f"[serve] {tag} batch {i}: {t * 1e3:.3f} ms, {BATCH / t:.1f} frames/s "
+            f"(B={BATCH}, {tag}, {card})")
+    want = expected(per_batch, len(batches))
+    if counts != want:
+        raise AssertionError(f"{tag} serving: MSDA kernel launches {counts}, expected {want}")
+    log(f"[serve] {tag} MSDA kernel launches over {len(batches)} batches: {json.dumps(counts)}")
     for i, (r, batch) in enumerate(zip(rows, batches)):
         valid = batch["is_valid"] > 0
         for k, v in r.items():
@@ -424,8 +585,8 @@ def main_path_phase(model, world, batches, card):
             if not finite.all():
                 raise AssertionError(f"batch {i}: metric {k} not finite on valid frames: {v}")
     means = {k: float(np.nanmean(np.concatenate([r[k] for r in rows]))) for k in rows[0]}
-    log("[serve] metrics (random weights): " + json.dumps(means))
-    return rows, times, launches, bwd_launches
+    log(f"[serve] {tag} metrics (random weights): " + json.dumps(means))
+    return rows, times, counts
 
 
 def gt_phase(world, batch):
@@ -440,7 +601,9 @@ def gt_phase(world, batch):
         raise AssertionError("GT translation solve did not recover the drawn translation")
 
 
-def e2e_phase(model, world, batch, kernel_rows):
+def e2e_phase(model, world, batch, kernel_rows, tag="fp32"):
+    """The same batch with the plain MSDA versions: the same outputs and
+    metric rows. Returns the kernel run's logits and keypoints."""
     with torch.inference_mode():
         images = torch.as_tensor(batch["images"], device="cuda")
         out_k = model(images)
@@ -451,19 +614,69 @@ def e2e_phase(model, world, batch, kernel_rows):
         finally:
             set_msda_impl(model, "auto")
     worst = 0.0
-    for k in ("pred_logits", "pred_hand_key", "pred_obj_key"):
+    for k in KEYS:
         d = float((out_k["stacked"][k] - out_p["stacked"][k]).abs().max())
         worst = max(worst, d)
-        log(f"[e2e] {k}: kernel vs plain max_abs_diff={d:.3e} (tol 1e-4)")
+        log(f"[e2e] {tag} {k}: kernel vs plain max_abs_diff={d:.3e} (tol 1e-4)")
     for k, v in plain_rows.items():
         a, b = kernel_rows[k], v.cpu().numpy()
         same_nan = np.array_equal(np.isnan(a), np.isnan(b))
         d = float(np.nanmax(np.abs(a - b))) if np.isfinite(a).any() else 0.0
-        log(f"[e2e] metric {k}: kernel vs plain max_abs_diff={d:.3e} mm (tol 1e-2)")
+        log(f"[e2e] {tag} metric {k}: kernel vs plain max_abs_diff={d:.3e} mm (tol 1e-2)")
         if not same_nan or d > 1e-2:
             raise AssertionError(f"metric {k}: kernel and plain runs disagree")
     if worst > 1e-4:
         raise AssertionError("kernel and plain MSDA runs disagree end to end")
+    return out_k
+
+
+def fac_fp32_phase(ref_out, images):
+    """One float32 batch through the factorized kernels, held against
+    phase 5's gather-kernel run of the same model and batch.
+
+    The interm outputs (every token's encoder-head output; no discrete
+    choice comes before them) agree within 1e-4. The decoder's outputs
+    follow discrete choices -- the two-stage top-k of 300 among 1045
+    scores and the class-gated refinement -- that a 1e-7 difference between
+    the formulations flips at random weights (the top-k order, above all),
+    so they are compared with those choices pinned, on the same weights and
+    batch: the encoder class head reads nothing (every score ties and both
+    runs take the lowest token indices) and every decoder class head
+    prefers a hand class by 8. Then logits and keypoints agree within 1e-4.
+    Returns the launches of the unpinned factorized batch."""
+    model, _ = build_world("cuda")
+    with torch.inference_mode():
+        with fac_formulation():
+            reset_counts()
+            out = model(images)
+            counts = read_counts()
+        if counts != expected(SERVE_FAC):
+            raise AssertionError(f"fp32 FAC batch: launches {counts}")
+        diff = (out["stacked"]["pred_logits"] - ref_out["stacked"]["pred_logits"]).abs()
+        moved = int((diff.amax(-1) > 1e-4).sum())
+        log(f"[fac-e2e] fp32, phase 5's model and batch: {moved} of {diff[..., 0].numel()} "
+            f"decoder query logits differ from the gather run's by more than 1e-4 (discrete "
+            f"choices moved); then the interm outputs and the pinned model:")
+    runs = [(f"interm {k}", out["interm_outputs"][k], ref_out["interm_outputs"][k])
+            for k in KEYS]
+    nd = model.num_decoder_layers
+    with torch.no_grad():
+        model.cls_embed[nd].weight.zero_()
+        for head in model.cls_embed[:nd]:
+            head.bias[12] = 8.0
+    pinned = {}
+    with torch.inference_mode():
+        for fac in (False, True):
+            with fac_formulation() if fac else contextlib.nullcontext():
+                pinned[fac] = model(images)["stacked"]
+        runs += [(f"pinned {k}", pinned[True][k], pinned[False][k]) for k in KEYS]
+    for name, a, b in runs:
+        d = float((a - b).abs().max())
+        log(f"[fac-e2e] fp32 {name}: factorized vs gather kernels max_abs_diff={d:.3e} "
+            f"(tol 1e-4)")
+        if not d <= 1e-4:
+            raise AssertionError(f"fp32 {name}: the two formulations disagree end to end")
+    return counts
 
 
 def profile_phase(model, world, batch):
@@ -521,13 +734,14 @@ def profile_phase(model, world, batch):
 # ------------------------------------------------------------ 7-9. training
 
 
-def train_ab_phase(model, world, batch):
+def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
     """One loss and backward in train mode (dropout and feature mask on)
     from the same weights and generator seed, with the kernels and with the
     plain MSDA versions. Loss terms within 1e-4 relative; each gradient
-    within 1e-3 of its tensor's max (the backward kernel's float32 dvalue
-    sums are atomics in no fixed order, and cuDNN's weight gradients are
-    not bit-repeatable either)."""
+    within `grad_tol` of its tensor's max (the backward kernel's float32
+    dvalue sums are atomics in no fixed order, and cuDNN's weight gradients
+    are not bit-repeatable either; in bf16 a last-bit change of a dvalue
+    sum moves its bf16 rounding a whole bf16 step)."""
     loss_fn = engine.make_loss_fn(model, *world, img_res=IMG_RES)
     tb = engine.to_device(batch, "cuda", engine.TRAIN_KEYS)
     params = dict(model.named_parameters())
@@ -547,7 +761,8 @@ def train_ab_phase(model, world, batch):
     (ld_k, g_k), (ld_p, g_p) = runs["auto"], runs["torch"]
     loss_worst = max(abs(ld_k[k] - ld_p[k]) / max(abs(ld_p[k]), 1e-2) for k in ld_p)
     bad = [k for k in ld_p if not abs(ld_k[k] - ld_p[k]) <= 1e-4 * abs(ld_p[k]) + 1e-6]
-    log(f"[train-ab] {len(ld_p)} loss terms, worst relative diff {loss_worst:.3e} (tol 1e-4)")
+    log(f"[train-ab] {tag} {len(ld_p)} loss terms, worst relative diff {loss_worst:.3e} "
+        f"(tol 1e-4)")
     if set(g_k) != set(g_p) or bad:
         raise AssertionError(f"kernel and plain train passes disagree on losses {bad}")
     worst, worst_name = 0.0, ""
@@ -555,13 +770,13 @@ def train_ab_phase(model, world, batch):
         rel = float((g_k[n] - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, n
-    log(f"[train-ab] {len(g_p)} gradients, worst {worst:.3e} of its tensor's max ({worst_name}; "
-        f"tol 1e-3)")
-    if worst > 1e-3:
+    log(f"[train-ab] {tag} {len(g_p)} gradients, worst {worst:.3e} of its tensor's max "
+        f"({worst_name}; tol {grad_tol:.0e})")
+    if worst > grad_tol:
         raise AssertionError("kernel and plain train passes disagree on gradients")
 
 
-def train_phase(model, world, batches, card):
+def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN):
     """The training path: make_fused_train_step with the CLI's defaults."""
     opt = create_optimizer(model)  # lr 2e-4, backbone 2e-5, linear proj x0.1, wd 1e-4
     step = engine.make_fused_train_step(
@@ -585,25 +800,27 @@ def train_phase(model, world, batches, card):
         bad = sorted(k for k, v in vals.items() if not np.isfinite(v))
         moved = {g: any(not torch.equal(p, old[n]) for n, p in params.items() if labels[n] == g)
                  for g in set(labels.values())}
-        delta = (after[0] - before[0], after[1] - before[1])
-        log(f"[train] step {i}: {dt * 1e3:.3f} ms, {BATCH / dt:.1f} frames/s (B={BATCH}, fp32, "
-            f"{card}); total {vals['total']:.6g}, grad_norm {vals['grad_norm']:.6g}, "
-            f"launches forward +{delta[0]} backward +{delta[1]}, groups moved {moved}")
+        delta = {n: after[n] - before[n] for n in KERNELS}
+        log(f"[train] {tag} step {i}: {dt * 1e3:.3f} ms, {BATCH / dt:.1f} frames/s (B={BATCH}, "
+            f"{tag}, {card}); total {vals['total']:.6g}, grad_norm {vals['grad_norm']:.6g}, "
+            f"launches {json.dumps({n: f'+{d}' for n, d in delta.items() if d})}, "
+            f"groups moved {moved}")
         if bad or not vals["grad_norm"] > 0:
             raise AssertionError(f"step {i}: non-finite losses {bad} or grad_norm "
                                  f"{vals['grad_norm']}")
-        if delta != (MSDA_PER_FORWARD, MSDA_PER_FORWARD):
-            raise AssertionError(f"step {i}: MSDA launches {delta}, expected 12 and 12")
+        if delta != expected(per_step):
+            raise AssertionError(f"{tag} step {i}: MSDA launches {delta}, "
+                                 f"expected {expected(per_step)}")
         if not all(moved.values()):
             raise AssertionError(f"step {i}: a parameter group did not move: {moved}")
-    fwd, bwd = read_counts()
-    log(f"[train] MSDA kernel launches over {len(batches)} steps: forward {fwd}, backward {bwd}")
-    log("[train] last step's losses: " + json.dumps(vals))
-    return times, fwd, bwd
+    counts = read_counts()
+    log(f"[train] {tag} MSDA kernel launches over {len(batches)} steps: {json.dumps(counts)}")
+    log(f"[train] {tag} last step's losses: " + json.dumps(vals))
+    return times, counts
 
 
 def train_profile_phase(model, world, batch):
-    """Where one train step's time goes, from the profiler over two steps of
+    """Where one train step's time goes, from the profiler over one step of
     make_fused_train_step itself: each stage's host time and the device time
     of the kernels it launched (its `engine.TRAIN_STAGES` range), and the
     device's busy share of the wall clock."""
@@ -615,7 +832,7 @@ def train_profile_phase(model, world, batch):
                                         generator=torch.Generator(device="cuda").manual_seed(SEED))
     step(batch)
     torch.cuda.synchronize()
-    reps = 2
+    reps = 1
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -644,6 +861,35 @@ def train_profile_phase(model, world, batch):
     log(events.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=60))
 
 
+def profile_line(label, fn):
+    """One profiled call of `fn` (after a warm-up call): wall clock, the
+    device's busy share, device kernels and copies, and each MSDA kernel's
+    device ms and calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    msda = {}
+    for e in kernels:
+        name = next((n for n in KERNELS if f"{n}_kernel" in e.key), None)
+        if name:
+            ms, calls = msda.get(name, (0.0, 0))
+            msda[name] = (ms + e.self_device_time_total / 1e3, calls + e.count)
+    log(f"[profile] {label}: wall {wall:.3f} ms, device busy {device_ms:.3f} ms "
+        f"({100 * device_ms / wall:.1f}%), {sum(e.count for e in kernels)} device kernels and "
+        f"copies; MSDA device ms (calls): "
+        + ", ".join(f"{n} {ms:.3f} ({c})" for n, (ms, c) in sorted(msda.items())))
+
+
 # ------------------------------------------------------------ main
 
 
@@ -667,53 +913,101 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     msda_cuda.library()
-    log(f"[build] msda_fwd.cu and msda_bwd.cu built (one nvcc each, together) and loaded "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {', '.join(src.name for src in msda_cuda.SOURCES)} built (one nvcc each, "
+        f"together) and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels against their plain versions
     timed, max_err = kernel_phase()
     btimed, bmax_err = backward_kernel_phase()
+    ftimed, fmax_err = fac_kernel_phase()
+    script_kernel_bounds()
 
     # 4. main path
     model, world = build_world("cuda")
     rng = np.random.default_rng(SEED)
     batches = [synthetic_batch(rng, world[2], BATCH) for _ in range(N_BATCHES)]
     gt_phase(world, batches[0])
-    rows, times, launches, serve_bwd = main_path_phase(model, world, batches, card)
+    rows, _, serve_fp32 = main_path_phase(model, world, batches, card)
 
     # 5. the same batch with the plain MSDA version
-    e2e_phase(model, world, batches[0], rows[0])
+    fp32_out = e2e_phase(model, world, batches[0], rows[0])
 
     # 6. where one batch's time goes
     profile_phase(model, world, batches[1])
+    del model
 
     # 7-9. training, from the same seeded weights
     model, world = build_world("cuda")
     train_batches = [synthetic_batch(rng, world[2], BATCH) for _ in range(TRAIN_STEPS)]
     train_ab_phase(model, world, train_batches[0])
-    _, train_fwd, train_bwd = train_phase(model, world, train_batches, card)
+    _, train_fp32 = train_phase(model, world, train_batches[:FP32_TRAIN_STEPS], card)
     train_profile_phase(model, world, train_batches[1])
+    del model
 
-    def per_step(t):
+    def bf16_paths(tag, serve, train):
+        """Phases 10-11 (or 12 under UVHAND_MSDA_FAC=1): the bf16 model
+        serves, is held against its plain MSDA run, trains, and is profiled."""
+        model, world = build_world("cuda", torch.bfloat16)
+        rows, _, serve_counts = main_path_phase(model, world, batches, card, tag, serve)
+        e2e_phase(model, world, batches[0], rows[0], tag)
+        step = engine.make_eval_step(model, *world, img_res=IMG_RES)
+        profile_line(f"{tag} serving batch", lambda: step(batches[1]))
+        # bf16: a last-bit change of an atomic dvalue sum is a whole bf16 step
+        train_ab_phase(model, world, train_batches[0], grad_tol=5e-2, tag=tag)
+        _, train_counts = train_phase(model, world, train_batches, card, tag, train)
+        train_step = engine.make_fused_train_step(
+            model, *world, create_optimizer(model), img_res=IMG_RES,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        profile_line(f"{tag} train step", lambda: train_step(train_batches[1]))
+        return serve_counts, train_counts
+
+    # 10-11. bf16 serving and training through the gather kernels
+    serve_bf16, train_bf16 = bf16_paths("bf16", SERVE, TRAIN)
+
+    # 12. the same with the factorized formulation, and one float32 batch of it
+    with fac_formulation():
+        serve_fac, train_fac = bf16_paths("bf16 FAC", SERVE_FAC, TRAIN_FAC)
+    serve_fac_fp32 = fac_fp32_phase(
+        fp32_out, torch.as_tensor(batches[0]["images"], device="cuda"))
+
+    def per_call(t, dtype):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
-        row = {key: 6 * t["encoder fp32"][key] + 6 * t["decoder fp32"][key]
-               for key in ("ms", "plain_ms", "bound_ms")}
-        by = {t[n]["bound_by"] for n in ("encoder fp32", "decoder fp32")}
-        row["bound_by"] = "bytes" if by == {"bytes"} else "operations"
+        enc, dec = f"encoder {dtype}", f"decoder {dtype}"
+        row = {key: 6 * t[enc][key] + 6 * t[dec][key] for key in ("ms", "plain_ms", "bound_ms")}
+        row["bound_by"] = "bytes" if {t[enc]["bound_by"], t[dec]["bound_by"]} == {"bytes"} \
+            else "operations"
         return row
 
-    log("[kernel] ms, plain_ms and bound_ms are per forward (msda_fwd) and per backward "
-        "(msda_bwd): 6 encoder + 6 decoder float32 calls; launches are the serving path's "
-        "(msda_fwd) and the training path's (msda_bwd), launches_by_path gives both")
+    log("[kernel] ms, plain_ms and bound_ms are per forward or backward of the model (6 encoder "
+        "+ 6 decoder calls): float32 for msda_fwd / msda_bwd, bf16 for the factorized kernels "
+        "(their path here); launches are the fp32 serving path's (msda_fwd), the fp32 training "
+        "path's (msda_bwd) and the FAC bf16 paths' (msda_fac_*); launches_by_path gives every "
+        "path's count")
+
+    def by_path(name):
+        return {"serve_fp32": serve_fp32[name], "train_fp32": train_fp32[name],
+                "serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
+                "serve_bf16_fac": serve_fac[name], "train_bf16_fac": train_fac[name],
+                "serve_fp32_fac": serve_fac_fp32[name]}
+
+    src = "uvhand_tpu_torch/ops/csrc/"
     log(json.dumps({"kernels": [
-        {"name": "msda_fwd", "route": "cuda", "source": "uvhand_tpu_torch/ops/csrc/msda_fwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:207", "launches": launches,
-         "launches_by_path": {"serve": launches, "train": train_fwd},
-         "max_abs_err": max_err, **per_step(timed), "library_ms": None},
-        {"name": "msda_bwd", "route": "cuda", "source": "uvhand_tpu_torch/ops/csrc/msda_bwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:233, :320", "launches": train_bwd,
-         "launches_by_path": {"serve": serve_bwd, "train": train_bwd},
-         "max_abs_err": bmax_err, **per_step(btimed), "library_ms": None},
+        {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
+         "replaces": "uvhand_tpu/ops/msda_pallas.py:207", "launches": serve_fp32["msda_fwd"],
+         "launches_by_path": by_path("msda_fwd"), "dtype": "float32",
+         "max_abs_err": max_err, **per_call(timed, "fp32"), "library_ms": None},
+        {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
+         "replaces": "uvhand_tpu/ops/msda_pallas.py:233, :320", "launches": train_fp32["msda_bwd"],
+         "launches_by_path": by_path("msda_bwd"), "dtype": "float32",
+         "max_abs_err": bmax_err, **per_call(btimed, "fp32"), "library_ms": None},
+        {"name": "msda_fac_fwd", "route": "cuda", "source": src + "msda_fac_fwd.cu",
+         "replaces": "uvhand_tpu/ops/msda_pallas.py:388", "launches": serve_fac["msda_fac_fwd"],
+         "launches_by_path": by_path("msda_fac_fwd"), "dtype": "bfloat16",
+         "max_abs_err": fmax_err["fwd"], **per_call(ftimed["fwd"], "bf16"), "library_ms": None},
+        {"name": "msda_fac_bwd", "route": "cuda", "source": src + "msda_fac_bwd.cu",
+         "replaces": "uvhand_tpu/ops/msda_pallas.py:429", "launches": train_fac["msda_fac_bwd"],
+         "launches_by_path": by_path("msda_fac_bwd"), "dtype": "bfloat16",
+         "max_abs_err": fmax_err["bwd"], **per_call(ftimed["bwd"], "bf16"), "library_ms": None},
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""The CUDA MSDA kernels against their plain versions, on the card.
+"""The CUDA MSDA kernels -- the gather form (`msda_fwd.cu`, `msda_bwd.cu`)
+and the factorized form (`msda_fac_fwd.cu`, `msda_fac_bwd.cu`) -- against
+their plain versions, on the card.
 
 The kernels have no CPU mode, so these tests are marked `cuda` and skip where
 no card is present. On a machine with one (which need not have JAX):
@@ -8,14 +10,17 @@ no card is present. On a machine with one (which need not have JAX):
 Tolerances: forward 1e-5 relative to max|value| in float32 (the kernel is
 built without fused multiply-add and matches bit for bit in practice) and
 2e-2 in bfloat16. Backward 1e-5 relative to each gradient's max in float32
-(dvalue is summed by atomics in no fixed order) and 2e-2 in bfloat16.
+(dvalue is summed by atomics in no fixed order) and 2e-2 in bfloat16. The
+two formulations against each other on the same inputs: the same tolerances
+(in bfloat16 they round at different places).
 """
 
 import pytest
 import torch
 
 from uvhand_tpu_torch.ops import msda_cuda
-from uvhand_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_torch,
+from uvhand_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_fac_torch,
+                                       ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
 
 CASES = {
@@ -30,6 +35,13 @@ CASES = {
     "integer_exact": (2, 40, 2, 16, 2, ((8, 16), (4, 8)), "integer"),
 }
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: formulation: (forward kernel, its plain version, backward kernel, its plain version)
+FORMS = {
+    "gather": (msda_cuda.ms_deform_attn_cuda, ms_deform_attn_torch,
+               msda_cuda.ms_deform_attn_backward_cuda, ms_deform_attn_torch_backward),
+    "fac": (msda_cuda.ms_deform_attn_fac_cuda, ms_deform_attn_fac_torch,
+            msda_cuda.ms_deform_attn_fac_backward_cuda, ms_deform_attn_fac_torch_backward),
+}
 
 
 def make_inputs(case, dtype, device):
@@ -58,33 +70,37 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_matches_plain(cuda, case, dtype):
+def test_kernel_matches_plain(cuda, case, dtype, form):
     value, shapes, loc, attn, _ = make_inputs(case, dtype, cuda)
     b, lq, m, d = CASES[case][:4]
-    before = msda_cuda.ms_deform_attn_cuda.launches
-    out = ms_deform_attn(value, shapes, loc, attn)
+    kernel, plain = FORMS[form][:2]
+    before = kernel.launches
+    out = kernel(value, shapes, loc, attn)
     torch.cuda.synchronize()
-    assert msda_cuda.ms_deform_attn_cuda.launches == before + 1
-    ref = ms_deform_attn_torch(value, shapes, loc, attn)
+    assert kernel.launches == before + 1
+    ref = plain(value, shapes, loc, attn)
     assert out.dtype == dtype and out.shape == (b, lq, m * d)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype] * value.float().abs().max().item()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_backward_kernel_matches_plain(cuda, case, dtype):
+def test_backward_kernel_matches_plain(cuda, case, dtype, form):
     value, shapes, loc, attn, gen = make_inputs(case, dtype, cuda)
     b, lq, m, d = CASES[case][:4]
     grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
-    before = msda_cuda.ms_deform_attn_backward_cuda.launches
-    ours = msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad)
+    kernel, plain = FORMS[form][2:]
+    before = kernel.launches
+    ours = kernel(value, shapes, loc, attn, grad)
     torch.cuda.synchronize()
-    assert msda_cuda.ms_deform_attn_backward_cuda.launches == before + 1
-    ref = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    assert kernel.launches == before + 1
+    ref = plain(value, shapes, loc, attn, grad)
     for name, o, r, want in zip(("dvalue", "dloc", "dattn"), ours, ref,
                                 (dtype, torch.float32, dtype)):
         assert o.dtype == want and o.shape == r.shape, name
@@ -105,27 +121,62 @@ def test_autograd_goes_through_both_kernels(cuda):
 
 
 @pytest.mark.cuda
-def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+def test_autograd_goes_through_both_fac_kernels(cuda, monkeypatch):
+    monkeypatch.setenv("UVHAND_MSDA_FAC", "1")
+    value, shapes, loc, attn, _ = make_inputs("decoder", torch.bfloat16, cuda)
+    counters = (msda_cuda.ms_deform_attn_fac_cuda, msda_cuda.ms_deform_attn_fac_backward_cuda,
+                msda_cuda.ms_deform_attn_cuda, msda_cuda.ms_deform_attn_backward_cuda)
+    before = [c.launches for c in counters]
+    leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]).float().square().sum().backward()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+    assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["encoder", "decoder", "odd_d", "side_of_one", "integer_exact"])
+def test_fac_kernels_agree_with_gather_kernels(cuda, case, dtype):
+    """Two formulations of one function: forward and every gradient agree
+    on the same inputs."""
+    value, shapes, loc, attn, gen = make_inputs(case, dtype, cuda)
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    fwd, _, bwd, _ = FORMS["gather"]
+    fac_fwd, _, fac_bwd, _ = FORMS["fac"]
+    pairs = [("forward", fac_fwd(value, shapes, loc, attn), fwd(value, shapes, loc, attn))]
+    pairs += list(zip(("dvalue", "dloc", "dattn"), fac_bwd(value, shapes, loc, attn, grad),
+                      bwd(value, shapes, loc, attn, grad)))
+    for name, f, g in pairs:
+        err = (f.float() - g.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(g.float().abs().max().item(), 1e-12), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda, form):
     shapes = ((4, 4),)
     value = torch.randn(1, 16, 2, 8, device=cuda)
     loc = torch.rand(1, 5, 2, 1, 2, 2, device=cuda)
     attn = torch.rand(1, 5, 2, 1, 2, device=cuda)
+    fwd = FORMS[form][0]
     with pytest.raises(TypeError):
-        msda_cuda.ms_deform_attn_cuda(value.double(), shapes, loc, attn.double())
+        fwd(value.double(), shapes, loc, attn.double())
     with pytest.raises(ValueError, match="contiguous"):
-        msda_cuda.ms_deform_attn_cuda(value.transpose(2, 3), shapes, loc, attn)
+        fwd(value.transpose(2, 3), shapes, loc, attn)
     with pytest.raises(ValueError, match="spatial_shapes"):
-        msda_cuda.ms_deform_attn_cuda(value, ((4, 5),), loc, attn)
+        fwd(value, ((4, 5),), loc, attn)
 
 
 @pytest.mark.cuda
-def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda, form):
     shapes = ((4, 4),)
     value = torch.randn(1, 16, 2, 8, device=cuda)
     loc = torch.rand(1, 5, 2, 1, 2, 2, device=cuda)
     attn = torch.rand(1, 5, 2, 1, 2, device=cuda)
     grad = torch.randn(1, 5, 16, device=cuda)
-    bwd = msda_cuda.ms_deform_attn_backward_cuda
+    bwd = FORMS[form][2]
     with pytest.raises(TypeError):
         bwd(value.double(), shapes, loc, attn.double(), grad.double())
     with pytest.raises(TypeError, match="grad_out dtype"):

@@ -3,6 +3,11 @@
 Port of `uvhand_tpu/models/backbones/resnet.py` (plain stem only; the JAX
 space-to-depth stem is a TPU rewrite of the same function). Returns the
 layer2/3/4 maps (strides 8/16/32, channels 512/1024/2048) in NCHW.
+
+`dtype` is the compute type, as in the JAX backbone: the input is cast to
+it, every conv computes in it from its float32 weight, and the frozen BN
+affine is applied in it, so the maps come out in `dtype`. Parameters stay
+float32.
 """
 
 from __future__ import annotations
@@ -37,11 +42,21 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x):
         inv = self.weight * torch.reciprocal(torch.sqrt(self.running_var + self.eps))
         shift = self.bias - self.running_mean * inv
-        return x * inv[None, :, None, None] + shift[None, :, None, None]
+        # computed in float32, applied in the activation's type
+        return (x * inv.to(x.dtype)[None, :, None, None]
+                + shift.to(x.dtype)[None, :, None, None])
+
+
+class Conv2d(nn.Conv2d):
+    """A bias-free conv that computes in its input's type from its float32
+    weight, as a flax `nn.Conv(dtype=...)`."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
 def _conv(cin, cout, k, stride=1, padding=0):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -71,8 +86,10 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """Returns (c3, c4, c5) in NCHW: strides 8/16/32, channels 512/1024/2048."""
 
-    def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, stride=2, padding=3)
         self.bn1 = FrozenBatchNorm2d(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -95,6 +112,7 @@ class ResNet50(nn.Module):
                 mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
 
     def forward(self, x):  # x: (B, 3, H, W)
+        x = x.to(self.dtype)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         x = self.layer1(x)
         c3 = self.layer2(x)

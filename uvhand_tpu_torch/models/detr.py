@@ -12,7 +12,11 @@ Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`,
   - train mode (`model.train()`): dropout in the transformer and the
     encoder feature mask (each input-projected element kept with
     probability 1 - feature_mask_ratio, with no rescale), both drawn from
-    the `torch.Generator` passed to `forward`.
+    the `torch.Generator` passed to `forward`,
+  - `compute_dtype` (the JAX model's bf16 compute mode): the backbone and
+    the transformer compute in it where the JAX model does; the input
+    projections, whose flax convs have no dtype, promote the backbone maps
+    to float32, and the heads stay float32. Parameters stay float32.
 
 Images enter NHWC like the JAX model and are permuted to NCHW for the
 backbone. The output dict has the JAX model's keys (`stacked`,
@@ -57,9 +61,9 @@ class _Joiner0(nn.Module):
     """Slot 0 of the reference's `Joiner(backbone, position_embedding)`:
     keeps the ResNet under `.body` for the `backbone.0.body.*` names."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.body = ResNet50()
+        self.body = ResNet50(dtype=dtype)
 
 
 class UVHandDETR(nn.Module):
@@ -69,6 +73,7 @@ class UVHandDETR(nn.Module):
                  dim_feedforward: int = 1024, num_feature_levels: int = 4,
                  dec_n_points: int = 4, enc_n_points: int = 4,
                  dropout: float = 0.1, feature_mask_ratio: float = 0.3,
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
         (the CUDA card unless `device="cpu"` is given), in eval mode."""
@@ -78,7 +83,7 @@ class UVHandDETR(nn.Module):
         self.feature_mask_ratio = feature_mask_ratio
         self.num_decoder_layers = num_decoder_layers
         self.num_feature_levels = num_feature_levels
-        self.backbone = nn.ModuleList([_Joiner0()])
+        self.backbone = nn.ModuleList([_Joiner0(compute_dtype)])
         nb = len(RESNET50_CHANNELS)
         self.input_proj = nn.ModuleList(
             [InputProj(c, d_model) for c in RESNET50_CHANNELS]
@@ -92,7 +97,7 @@ class UVHandDETR(nn.Module):
             dim_feedforward=dim_feedforward,
             num_feature_levels=num_feature_levels,
             dec_n_points=dec_n_points, enc_n_points=enc_n_points,
-            num_queries=num_queries, dropout=dropout)
+            num_queries=num_queries, dropout=dropout, compute_dtype=compute_dtype)
         num_pred = num_decoder_layers + 1  # two-stage: the extra one is the encoder head
         self.cls_embed = nn.ModuleList(nn.Linear(d_model, num_classes) for _ in range(num_pred))
         self.key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
@@ -139,7 +144,9 @@ class UVHandDETR(nn.Module):
                        generator: torch.Generator | None = None):
         """(srcs (B, C, H_l, W_l), masks (B, H_l, W_l), pos (B, H_l, W_l, C))
         for every level, from NHWC images."""
-        feats = self.backbone[0].body(images.permute(0, 3, 1, 2))
+        # float32 from here: flax promotes the compute-type maps to the input
+        # projections' float32 parameters
+        feats = [f.float() for f in self.backbone[0].body(images.permute(0, 3, 1, 2))]
         B, H, W, _ = images.shape
         if image_mask is None:
             image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
@@ -165,7 +172,7 @@ class UVHandDETR(nn.Module):
         obj_cam = self.obj_cam[0](hs)
         obj_rot = self.obj_rot[0](hs)
         obj_rad = self.obj_rad[0](hs)
-        logits = t_out["pred_logits"]
+        logits = t_out["pred_logits"].float()
         hand_key = t_out["pred_hand_key"]
         obj_key = t_out["pred_obj_key"]
 

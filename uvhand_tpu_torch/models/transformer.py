@@ -21,6 +21,14 @@ dict (`transformer.encoder.layers.{i}.*`, `transformer.pos_trans.{0,2,4}`...).
 The class and keypoint heads belong to `UVHandDETR` (reference names
 `cls_embed.{i}`, `key_embed.{i}`...) and are passed into `forward`, since the
 decoder's refinement is gated on them.
+
+`compute_dtype` places bf16 exactly where the JAX transformer's
+`compute_dtype` does, layer by layer (not by autocast, whose op lists put it
+elsewhere): the MSDA value path, the FFN's two linears (the second cast back
+to float32), the decoder self-attention (projections, scores, softmax and
+weight dropout) and `pos_trans` with the proposal embedding feeding it.
+LayerNorms, `enc_output`, the heads and the residual stream stay float32;
+parameters are float32 throughout.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.msda import MSDeformAttn
+from ..ops.msda import MSDeformAttn, dense
 from .posenc import interleaved_sincos
 
 
@@ -68,10 +76,18 @@ def keep_mask(shape, keep: float, generator: torch.Generator | None, device):
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """The constant `x` as `dtype` holds it (on the host: no device copy).
+    JAX turns a Python constant into the array's type before it computes,
+    so a bf16 activation is scaled by bf16(x); torch would take x itself."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 class Drop(nn.Module):
     """Inverted dropout in train mode (keep each element with probability
-    1 - rate, scale the kept ones by 1 / (1 - rate)); the identity in eval
-    mode. Port of the JAX package's `Drop`."""
+    1 - rate, scale the kept ones by 1 / (1 - rate), that constant in the
+    activation's type); the identity in eval mode. Port of the JAX
+    package's `Drop`."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -81,38 +97,53 @@ class Drop(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        return torch.where(keep_mask(x.shape, keep, generator, x.device), x / keep, 0.0)
+        return torch.where(keep_mask(x.shape, keep, generator, x.device),
+                           x / rounded(keep, x.dtype), 0.0)
 
 
 def self_attention(mha: nn.MultiheadAttention, q, v, rate: float,
-                   generator: torch.Generator | None):
+                   generator: torch.Generator | None, dtype: torch.dtype = torch.float32):
     """Multi-head attention from `mha`'s own `in_proj_*` / `out_proj`, as
-    flax's `MultiHeadDotProductAttention` computes it: queries scaled by
-    1/sqrt(head_dim) before the product, and in train mode dropout on the
-    softmaxed weights with ONE (Lq, Lk) keep mask broadcast over batch and
-    heads (flax's `broadcast_dropout=True`)."""
+    flax's `MultiHeadDotProductAttention(dtype=dtype)` computes it: every
+    projection, the scores, the softmax and the output in `dtype` (flax
+    upcasts nowhere), queries divided by sqrt(head_dim) in `dtype` before
+    the product, and in train mode dropout on the softmaxed weights with
+    ONE (Lq, Lk) keep mask broadcast over batch and heads (flax's
+    `broadcast_dropout=True`), its 1 / keep also in `dtype`."""
     B, N, E = q.shape
     h = mha.num_heads
-    w_q, w_k, w_v = mha.in_proj_weight.chunk(3)
-    b_q, b_k, b_v = mha.in_proj_bias.chunk(3)
+    w_q, w_k, w_v = mha.in_proj_weight.to(dtype).chunk(3)
+    b_q, b_k, b_v = mha.in_proj_bias.to(dtype).chunk(3)
+    q, v = q.to(dtype), v.to(dtype)
 
     def heads(x, w, b):
         return F.linear(x, w, b).view(B, -1, h, E // h).transpose(1, 2)  # (B, h, n, hd)
 
-    qh = heads(q, w_q, b_q) / math.sqrt(E // h)
+    qh = heads(q, w_q, b_q) / rounded(math.sqrt(E // h), dtype)
     weights = torch.softmax(qh @ heads(q, w_k, b_k).transpose(-1, -2), -1)
     if mha.training and rate > 0.0:
         keep = 1.0 - rate
-        weights = weights * (keep_mask(weights.shape[-2:], keep, generator, q.device) / keep)
+        mask = keep_mask(weights.shape[-2:], keep, generator, q.device)
+        weights = weights * (mask.to(dtype) / rounded(keep, dtype))
     out = (weights @ heads(v, w_v, b_v)).transpose(1, 2).reshape(B, N, E)
-    return mha.out_proj(out)
+    return dense(mha.out_proj, out, dtype)
+
+
+def feed_forward(layer: nn.Module, x: torch.Tensor, generator: torch.Generator | None):
+    """The FFN of an encoder or decoder layer: `linear1`, ReLU and dropout in
+    the layer's compute type, `linear2`'s output cast to float32."""
+    dt = layer.compute_dtype
+    ff = layer.drop(torch.relu(dense(layer.linear1, x, dt)), generator)
+    return dense(layer.linear2, ff, dt).float()
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
-                 dropout=0.1):
+                 dropout=0.1, compute_dtype=torch.float32):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.compute_dtype = compute_dtype
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                      compute_dtype=compute_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -122,15 +153,16 @@ class EncoderLayer(nn.Module):
     def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, generator=None):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
         src = self.norm1(src + self.drop(src2, generator))
-        ff = self.linear2(self.drop(torch.relu(self.linear1(src)), generator))
-        return self.norm2(src + self.drop(ff, generator))
+        return self.norm2(src + self.drop(feed_forward(self, src, generator), generator))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model=256, d_ffn=1024, n_levels=4, n_heads=8, n_points=4,
-                 dropout=0.1):
+                 dropout=0.1, compute_dtype=torch.float32):
         super().__init__()
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.compute_dtype = compute_dtype
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                       compute_dtype=compute_dtype)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         # a container of the reference's parameter names; `self_attention`
         # computes it
@@ -144,13 +176,13 @@ class DecoderLayer(nn.Module):
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
                 generator=None):
         q = tgt + query_pos
-        tgt2 = self_attention(self.self_attn, q, tgt, self.drop.rate, generator)
+        tgt2 = self_attention(self.self_attn, q, tgt, self.drop.rate, generator,
+                              self.compute_dtype)
         tgt = self.norm2(tgt + self.drop(tgt2, generator))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
         tgt = self.norm1(tgt + self.drop(tgt2, generator))
-        ff = self.linear2(self.drop(torch.relu(self.linear1(tgt)), generator))
-        return self.norm3(tgt + self.drop(ff, generator))
+        return self.norm3(tgt + self.drop(feed_forward(self, tgt, generator), generator))
 
 
 class _Layers(nn.Module):
@@ -175,14 +207,16 @@ def encoder_reference_points(spatial_shapes, valid_ratios):
     return ref[:, :, None] * valid_ratios[:, None]
 
 
-def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128) -> torch.Tensor:
-    """42-d unactivated proposal -> (B, Q, 42*num_pos_feats) sine embedding."""
+def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """42-d unactivated proposal -> (B, Q, 42*num_pos_feats) sine embedding,
+    computed in float32 and cast to `dtype`."""
     scale = 2 * math.pi
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=proposals.device)
     dim_t = 10000.0 ** (2 * torch.floor(dim_t / 2) / num_pos_feats)
     p = torch.sigmoid(proposals) * scale
     pos = interleaved_sincos(p[..., None] / dim_t)  # (B, Q, 42, F)
-    return pos.flatten(2)
+    return pos.to(dtype).flatten(2)
 
 
 # sentinel for invalid two-stage proposals (sigmoid(1e4) == 1.0 in fp32)
@@ -204,18 +238,20 @@ def _class_masks(class_indices: torch.Tensor):
 class DeformableTransformer(nn.Module):
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
-                 dec_n_points=4, enc_n_points=4, num_queries=300, dropout=0.1):
+                 dec_n_points=4, enc_n_points=4, num_queries=300, dropout=0.1,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.d_model = d_model
+        self.compute_dtype = compute_dtype
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.encoder = _Layers(
             EncoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, enc_n_points,
-                         dropout)
+                         dropout, compute_dtype)
             for _ in range(num_encoder_layers))
         self.decoder = _Layers(
             DecoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, dec_n_points,
-                         dropout)
+                         dropout, compute_dtype)
             for _ in range(num_decoder_layers))
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         self.enc_output = nn.Linear(d_model, d_model)
@@ -298,7 +334,10 @@ class DeformableTransformer(nn.Module):
         enc_obj = enc_obj + root
 
         scores = enc_cls.max(-1).values
-        topk_idx = torch.topk(scores, self.num_queries, dim=1).indices  # (B, Q)
+        # largest first, the lower index first among equal scores: the order
+        # of `jax.lax.top_k` (torch.topk leaves ties in no stated order)
+        topk_idx = torch.sort(scores, dim=1, descending=True, stable=True).indices[
+            :, :self.num_queries]  # (B, Q)
 
         def take(x):
             return torch.gather(x, 1, topk_idx[..., None].expand(-1, -1, x.shape[-1]))
@@ -312,8 +351,11 @@ class DeformableTransformer(nn.Module):
         ref_unact = torch.where(hand_m[..., None], take(enc_hand).detach(), ref_unact)
         reference_points = torch.sigmoid(ref_unact) * 2 - 1  # [-1, 1] quirk
 
-        pe = proposal_pos_embed(ref_unact)
-        pt = self.pos_trans_norm(self.pos_trans(pe))
+        dt = self.compute_dtype
+        pt = proposal_pos_embed(ref_unact, dtype=dt)
+        for lin in self.pos_trans[::2]:  # the three linears, each followed by a ReLU
+            pt = torch.relu(dense(lin, pt, dt))
+        pt = self.pos_trans_norm(pt.float())
         query_pos, tgt = torch.split(pt, self.d_model, -1)
 
         # ---- decoder with gated reference refinement ----

@@ -54,36 +54,11 @@
 // expected to sit well above its byte bound. Staging value tiles in shared
 // memory, TMA and wgmma are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 16;
-constexpr int kWarpsPerBlock = 8;
-
-struct LevelPlan {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float sign_of(float d) {
-  return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-}
-
-// Sum over the 32 lanes; every lane ends with the same value.
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = x + __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+using namespace msda;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -172,28 +147,18 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
                         const int* hw, const int* level_start,
                         int L, int B, int S, int Lq, int M, int D, int P,
                         int is_bf16, int device, void* stream) {
-  if (L < 1 || L > kMaxLevels || D < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
   LevelPlan plan;
-  plan.n = L;
-  for (int l = 0; l < L; ++l) {
-    plan.h[l] = hw[2 * l];
-    plan.w[l] = hw[2 * l + 1];
-    plan.start[l] = level_start[l];
-  }
-  const long long rows = (long long)B * Lq * M;
-  if (rows == 0) return 0;
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  unsigned blocks = 0;
+  const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
+  if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    msda_bwd_kernel<__nv_bfloat16><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    msda_bwd_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         (const __nv_bfloat16*)value, (const float*)loc, (const __nv_bfloat16*)attn,
         (const __nv_bfloat16*)grad, (float*)dvalue, (float*)dloc,
         (__nv_bfloat16*)dattn, plan, B, S, Lq, M, D, P);
   } else {
-    msda_bwd_kernel<float><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    msda_bwd_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         (const float*)value, (const float*)loc, (const float*)attn,
         (const float*)grad, (float*)dvalue, (float*)dloc, (float*)dattn,
         plan, B, S, Lq, M, D, P);

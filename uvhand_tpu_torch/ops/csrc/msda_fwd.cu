@@ -34,25 +34,11 @@
 // its own, in the same order as the plain PyTorch version
 // (`ms_deform_attn_torch`), so the two agree bit for bit in float32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 16;
-constexpr int kWarpsPerBlock = 8;
-
-struct LevelPlan {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+using namespace msda;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -120,27 +106,17 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
                         void* out, const int* hw, const int* level_start,
                         int L, int B, int S, int Lq, int M, int D, int P,
                         int is_bf16, int device, void* stream) {
-  if (L < 1 || L > kMaxLevels || D < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
   LevelPlan plan;
-  plan.n = L;
-  for (int l = 0; l < L; ++l) {
-    plan.h[l] = hw[2 * l];
-    plan.w[l] = hw[2 * l + 1];
-    plan.start[l] = level_start[l];
-  }
-  const long long rows = (long long)B * Lq * M;
-  if (rows == 0) return 0;
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  unsigned blocks = 0;
+  const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
+  if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    msda_fwd_kernel<__nv_bfloat16><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    msda_fwd_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         (const __nv_bfloat16*)value, (const float*)loc,
         (const __nv_bfloat16*)attn, (__nv_bfloat16*)out, plan, B, S, Lq, M, D, P);
   } else {
-    msda_fwd_kernel<float><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, s>>>(
+    msda_fwd_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         (const float*)value, (const float*)loc, (const float*)attn,
         (float*)out, plan, B, S, Lq, M, D, P);
   }

@@ -13,19 +13,30 @@ bilinearly at pixel (x * W - 0.5, y * H - 0.5) -- grid_sample with
 align_corners=False and zero padding -- and the samples are summed with the
 attention weights, accumulating in float32.
 
+Two formulations of that function, as in the JAX package's TPU kernels:
+  - the gather form (`csrc/msda_fwd.cu`, `csrc/msda_bwd.cu`; plain versions
+    `ms_deform_attn_torch`, `ms_deform_attn_torch_backward`), the default;
+  - the factorized form (`csrc/msda_fac_fwd.cu`, `csrc/msda_fac_bwd.cu`;
+    plain versions `ms_deform_attn_fac_torch`,
+    `ms_deform_attn_fac_torch_backward`): rows first, then columns, with
+    the TPU kernels' bf16 rounding points. It is taken where `fac_ok` holds:
+    `UVHAND_MSDA_FAC=1` and the TPU row table fits (every level side <= 128,
+    WD <= 4096), the shapes on which the JAX package takes it.
+
 `ms_deform_attn(impl="auto")` launches the hand-written CUDA kernels
-(`msda_cuda.py`: `csrc/msda_fwd.cu` forward, `csrc/msda_bwd.cu` backward) for
-a CUDA tensor and runs the plain versions `ms_deform_attn_torch` /
-`ms_deform_attn_torch_backward` for a CPU tensor. When a gradient is needed
-the op goes through `MSDeformAttnFunction`, whose backward is the backward
-kernel or its plain version; autograd never differentiates the plain
-forward itself, whose `abs` would give the far corner of an integer-exact
-sample a gradient that the JAX package gives 0.
+(`msda_cuda.py`) for a CUDA tensor and runs the plain versions for a CPU
+tensor; `impl="torch"` runs the plain versions on any device. When a
+gradient is needed the op goes through `MSDeformAttnFunction`, whose
+backward is the backward kernel or its plain version of the formulation
+its forward ran; autograd never differentiates a plain forward itself,
+whose `abs` would give the far corner of an integer-exact sample a gradient
+that the JAX package gives 0.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -168,8 +179,170 @@ def ms_deform_attn_torch_backward(
             dattn.to(attention_weights.dtype))
 
 
-def _forward(value, spatial_shapes, loc, attn, impl):
-    if impl == "auto" and value.is_cuda:
+def fac_ok(spatial_shapes: Sequence[Tuple[int, int]], D: int) -> bool:
+    """True where the JAX package's `_fac_ok` takes the factorized kernels:
+    `UVHAND_MSDA_FAC=1`, every level side <= 128 (the TPU row table has 128
+    rows) and the lane-padded row-table width WD = sum of the levels'
+    W * D rounded up to 128 at most 4096. Read at every call."""
+    if os.environ.get("UVHAND_MSDA_FAC", "0") != "1":
+        return False
+    wd = sum(-(-w * D // 128) * 128 for _, w in spatial_shapes)
+    return all(h <= 128 and w <= 128 for h, w in spatial_shapes) and wd <= 4096
+
+
+def _rounder(dtype):
+    """Rounding to the value's type, as the TPU factorized kernels round
+    their operands to it; the identity in float32 and float64."""
+    if dtype in (torch.float32, torch.float64):
+        return lambda x: x
+    return lambda x: x.to(dtype).to(torch.float32)
+
+
+def _fac_sample(loc, attention_weights, lvl, p, H, W, ft):
+    """Per-sample quantities of the factorized kernels at (level, point):
+    attention, then per row r = floor(py) + dy its index, in-map flag, tent
+    and tent sign (where(|d| < 1, sign(d), 0)), and likewise per column."""
+    px = loc[:, :, :, lvl, p, 0] * W - 0.5
+    py = loc[:, :, :, lvl, p, 1] * H - 0.5
+    a = attention_weights[:, :, :, lvl, p].to(ft)
+    zero = torch.zeros((), dtype=ft, device=loc.device)
+
+    def axis(pos, size):
+        start = torch.floor(pos)
+        out = []
+        for k in (0, 1):
+            idx = start + k
+            dist = pos - idx
+            sgn = torch.where(dist.abs() < 1.0, torch.sign(dist), zero)
+            out.append((idx, (idx >= 0) & (idx < size), 1.0 - dist.abs(), sgn))
+        return out
+
+    return a, axis(py, H), axis(px, W)
+
+
+def ms_deform_attn_fac_torch(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of the factorized forward kernel (`msda_fac_fwd.cu`),
+    the function of the TPU's `_fwd_kernel_fac`: per (level, point) the row
+    tents ay (rounded to the value's type) combine the sample's rows into
+    T[c] = sum_r ay[r] v[r, c] (float32), and the output adds
+    round(round(a * ax[c]) * T[c]) over the sample's columns c. Only the
+    <= 2 rows and columns of the sample's support inside the map take part.
+    It repeats the kernel's arithmetic in its order, so the two agree bit
+    for bit (the kernel is built without fused multiply-add)."""
+    B, S, M, D = value.shape
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
+    dev = value.device
+    vflat = value.reshape(B * S * M, D)
+    base = (torch.arange(B, device=dev).view(B, 1, 1) * (S * M)
+            + torch.arange(M, device=dev).view(1, 1, M))
+    ft = torch.promote_types(value.dtype, torch.float32)
+    rnd = _rounder(value.dtype)
+    loc = sampling_locations.to(ft)
+    acc = torch.zeros(B, Lq, M, D, dtype=ft, device=dev)
+    start = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        for p in range(P):
+            a, rows, cols = _fac_sample(loc, attention_weights, lvl, p, H, W, ft)
+            for cx, cvalid, hx, _ in cols:
+                awx = rnd(a * hx)
+                t = torch.zeros_like(acc)
+                for cy, rvalid, hy, _ in rows:
+                    valid = rvalid & cvalid
+                    cell = torch.where(valid, cy * W + cx, 0.0).long()
+                    v = vflat[base + (start + cell) * M].to(ft)
+                    t = t + torch.where(valid[..., None], rnd(hy)[..., None] * v, 0.0)
+                acc = acc + torch.where(cvalid[..., None], rnd(awx[..., None] * t), 0.0)
+        start += H * W
+    return acc.to(value.dtype).reshape(B, Lq, M * D)
+
+
+def ms_deform_attn_fac_torch_backward(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the factorized backward kernel (`msda_fac_bwd.cu`),
+    the function of the TPU's `_bwd_kernel_fac` -> (dvalue in the value's
+    type, dloc float32, dattn in the attention's type). Per (level, point),
+    with ay, ax the row and column tents rounded to the value's type,
+    axg = ax[c] g and T[c] = sum_r ay[r] v[r, c]:
+      dv[r, c] += ay[r] round(a axg)
+      dattn = sum_c sum_d round(axg T[c])
+      dpy = -a sum_r sgn_y[r] round(Q[r]),  Q[r] = sum_c sum_d round(axg) v[r, c]
+      dpx = -a sum_c sgn_x[c] round(R[c]),  R[c] = sum_d round(g T[c])
+    and dloc = (dpx * W, dpy * H). Sums over the channels are taken in the
+    kernel's warp order (`_warp_sum`), so dattn and dloc repeat the kernel
+    bit for bit; dvalue's sums are in another order (the kernel's are
+    float32 atomics)."""
+    B, S, M, D = value.shape
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
+    dev = value.device
+    vflat = value.reshape(B * S * M, D)
+    ft = torch.promote_types(value.dtype, torch.float32)
+    rnd = _rounder(value.dtype)
+    g = grad_out.reshape(B, Lq, M, D).to(ft)
+    base = (torch.arange(B, device=dev).view(B, 1, 1) * (S * M)
+            + torch.arange(M, device=dev).view(1, 1, M))
+    loc = sampling_locations.to(ft)
+    dvalue = torch.zeros(B * S * M, D, dtype=ft, device=dev)
+    dloc = torch.empty(B, Lq, M, L, P, 2, dtype=ft, device=dev)
+    dattn = torch.empty(B, Lq, M, L, P, dtype=ft, device=dev)
+    zero = torch.zeros((), dtype=ft, device=dev)
+    start = 0
+    for lvl, (H, W) in enumerate(spatial_shapes):
+        for p in range(P):
+            a, rows, cols = _fac_sample(loc, attention_weights, lvl, p, H, W, ft)
+            s_daw = torch.zeros_like(g)
+            s_q = [torch.zeros_like(g), torch.zeros_like(g)]
+            r_sums = []
+            for cx, cvalid, hx, _ in cols:
+                axg = rnd(hx)[..., None] * g
+                h = rnd(a[..., None] * axg)
+                axg_r = rnd(axg)
+                t = torch.zeros_like(g)
+                vs = []
+                for cy, rvalid, hy, _ in rows:
+                    valid = (rvalid & cvalid)[..., None]
+                    cell = torch.where(valid[..., 0], cy * W + cx, 0.0).long()
+                    rows_idx = base + (start + cell) * M
+                    v = vflat[rows_idx].to(ft)
+                    ay = rnd(hy)[..., None]
+                    t = t + torch.where(valid, ay * v, 0.0)
+                    dvalue.index_add_(0, rows_idx.reshape(-1),
+                                      torch.where(valid, ay * h, 0.0).reshape(-1, D))
+                    vs.append((valid, v))
+                cv = cvalid[..., None]
+                s_daw = s_daw + torch.where(cv, rnd(axg * t), 0.0)
+                for k, (valid, v) in enumerate(vs):
+                    s_q[k] = s_q[k] + torch.where(valid, axg_r * v, 0.0)
+                r_sums.append(_warp_sum(torch.where(cv, rnd(g * t), 0.0)))
+            gy = gx = torch.zeros_like(a)
+            for (_, rvalid, _, sgn), q in zip(rows, s_q):
+                gy = gy + torch.where(rvalid, sgn * rnd(_warp_sum(q)), zero)
+            for (_, cvalid, _, sgn), r in zip(cols, r_sums):
+                gx = gx + torch.where(cvalid, sgn * rnd(r), zero)
+            dattn[:, :, :, lvl, p] = _warp_sum(s_daw)
+            dloc[:, :, :, lvl, p, 0] = -(a * gx) * W
+            dloc[:, :, :, lvl, p, 1] = -(a * gy) * H
+        start += H * W
+    return (dvalue.view(B, S, M, D).to(value.dtype), dloc.to(sampling_locations.dtype),
+            dattn.to(attention_weights.dtype))
+
+
+def _forward(value, spatial_shapes, loc, attn, impl, fac):
+    on_card = impl == "auto" and value.is_cuda
+    if fac:
+        if on_card:
+            return msda_cuda.ms_deform_attn_fac_cuda(value, spatial_shapes, loc, attn)
+        return ms_deform_attn_fac_torch(value, spatial_shapes, loc, attn)
+    if on_card:
         return msda_cuda.ms_deform_attn_cuda(value, spatial_shapes, loc, attn)
     return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
 
@@ -177,23 +350,29 @@ def _forward(value, spatial_shapes, loc, attn, impl):
 class MSDeformAttnFunction(torch.autograd.Function):
     """MSDA with a hand-written gradient: the forward and backward kernels
     for CUDA tensors under impl='auto', the plain versions for CPU tensors
-    or under impl='torch'."""
+    or under impl='torch'. `fac` picks the factorized formulation; the
+    forward stores it, so the backward runs the same one whatever the
+    environment says by then."""
 
     @staticmethod
-    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes, impl):
+    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes, impl, fac):
         ctx.save_for_backward(value, sampling_locations, attention_weights)
-        ctx.spatial_shapes, ctx.impl = spatial_shapes, impl
-        return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl)
+        ctx.spatial_shapes, ctx.impl, ctx.fac = spatial_shapes, impl, fac
+        return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl, fac)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
+        shapes = ctx.spatial_shapes
         if ctx.impl == "auto" and value.is_cuda:
-            grads = msda_cuda.ms_deform_attn_backward_cuda(
-                value, ctx.spatial_shapes, loc, attn, grad_out.contiguous())
+            kernel = (msda_cuda.ms_deform_attn_fac_backward_cuda if ctx.fac
+                      else msda_cuda.ms_deform_attn_backward_cuda)
+            grads = kernel(value, shapes, loc, attn, grad_out.contiguous())
         else:
-            grads = ms_deform_attn_torch_backward(value, ctx.spatial_shapes, loc, attn, grad_out)
-        return (*grads, None, None)
+            plain = (ms_deform_attn_fac_torch_backward if ctx.fac
+                     else ms_deform_attn_torch_backward)
+            grads = plain(value, shapes, loc, attn, grad_out)
+        return (*grads, None, None, None)
 
 
 def ms_deform_attn(
@@ -207,15 +386,17 @@ def ms_deform_attn(
 
     impl: 'auto' (the CUDA kernels for a CUDA tensor, the plain versions for
     a CPU tensor) or 'torch' (the plain versions on any device, for holding
-    the kernels against them)."""
+    the kernels against them). The formulation is the factorized one where
+    `fac_ok` holds, else the gather form."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if impl not in ("auto", "torch"):
         raise ValueError(f"unknown MSDA impl {impl!r}")
+    fac = fac_ok(spatial_shapes, value.shape[-1])
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
         return MSDeformAttnFunction.apply(value, sampling_locations, attention_weights,
-                                          spatial_shapes, impl)
-    return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl)
+                                          spatial_shapes, impl, fac)
+    return _forward(value, spatial_shapes, sampling_locations, attention_weights, impl, fac)
 
 
 def directional_offset_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -230,6 +411,12 @@ def directional_offset_init(n_heads: int, n_levels: int, n_points: int) -> np.nd
     return grid.reshape(-1)
 
 
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`layer` computed in `dtype` from its float32 parameters, as a flax
+    `nn.Dense(dtype=dtype)` computes: input, weight and bias cast to it."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
 class MSDeformAttn(nn.Module):
     """MSDA layer: projections + sampling-location construction + core op.
 
@@ -238,14 +425,21 @@ class MSDeformAttn(nn.Module):
     attention projections are linear in the same query, so they run as one
     GEMM over the concatenated weights, as the JAX layer does. Reference
     points are 2-d, or 42-d (21 keypoints) with *center refine*: the
-    sampling center is the mean of the keypoints' x and of their y."""
+    sampling center is the mean of the keypoints' x and of their y.
+
+    `compute_dtype` is the value path's type, as in the JAX layer: the
+    value and output projections compute in it, the value and the attention
+    weights enter the op in it; the offset/attention GEMM and the sampling
+    locations stay float32, and the output is float32."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, impl: str = "auto"):
+                 n_points: int = 4, impl: str = "auto",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.impl = impl
+        self.compute_dtype = compute_dtype
         mlp = n_heads * n_levels * n_points
         self.sampling_offsets = nn.Linear(d_model, mlp * 2)
         self.attention_weights = nn.Linear(d_model, mlp)
@@ -276,7 +470,8 @@ class MSDeformAttn(nn.Module):
         M, L, P = self.n_heads, self.n_levels, self.n_points
         D = self.d_model // M
 
-        value = self.value_proj(input_flatten)
+        dt = self.compute_dtype
+        value = dense(self.value_proj, input_flatten, dt)
         if input_padding_mask is not None:
             value = value.masked_fill(input_padding_mask[..., None], 0.0)
         value = value.view(B, S, M, D)
@@ -302,6 +497,6 @@ class MSDeformAttn(nn.Module):
                 f"{reference_points.shape[-1]}")
         loc = center + offsets / normalizer[None, None, None, :, None, :]
 
-        out = ms_deform_attn(value, spatial_shapes, loc.contiguous(), attn,
+        out = ms_deform_attn(value, spatial_shapes, loc.contiguous(), attn.to(dt),
                              impl=self.impl)
-        return self.output_proj(out)
+        return dense(self.output_proj, out, dt).float()

@@ -3,18 +3,21 @@
   - `csrc/msda_fwd.cu` replaces the TPU kernel `_fwd_kernel`
     (`uvhand_tpu/ops/msda_pallas.py:207`);
   - `csrc/msda_bwd.cu` replaces both TPU backward kernels, `_bwd_kernel_sep`
-    (`:233`) and `_bwd_kernel` (`:320`).
+    (`:233`) and `_bwd_kernel` (`:320`);
+  - `csrc/msda_fac_fwd.cu` replaces the factorized forward `_fwd_kernel_fac`
+    (`:388`), and `csrc/msda_fac_bwd.cu` its backward `_bwd_kernel_fac`
+    (`:429`).
 
-Each source note gives its kernel's bound. The sources are compiled on first
-use with `nvcc` for `sm_90a`, one `nvcc` per source started together, and
-linked into one shared library with a plain C interface in `build/kernels/`
-at the root of the checkout, named by a hash of both sources and the flags;
-it is loaded with ctypes. Nothing is built or imported when this module is
-imported, so the CPU tests can import it on a machine without `nvcc`.
+Each source note gives its kernel's bound. The sources (and the helpers they
+share, `csrc/msda_common.cuh`) are compiled on first use with `nvcc` for
+`sm_90a`, one `nvcc` per source started together, and linked into one shared
+library with a plain C interface in `build/kernels/` at the root of the
+checkout, named by a hash of the sources and the flags; it is loaded with
+ctypes. Nothing is built or imported when this module is imported, so the
+CPU tests can import it on a machine without `nvcc`.
 
-`ms_deform_attn_cuda.launches` and `ms_deform_attn_backward_cuda.launches`
-count the kernel launches (plain ints), so a run can show that its main path
-went through the kernels.
+Each wrapper's `.launches` counts its kernel's launches (a plain int), so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from typing import Sequence, Tuple
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "msda_fwd.cu", _CSRC / "msda_bwd.cu")
+SOURCES = tuple(_CSRC / f"{name}.cu" for name in
+                ("msda_fwd", "msda_bwd", "msda_fac_fwd", "msda_fac_bwd"))
+HEADERS = (_CSRC / "msda_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
@@ -58,7 +63,7 @@ def _run(procs):
 def library() -> ctypes.CDLL:
     """Compile (once per source content) and load the kernel library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     so = _BUILD_DIR / f"libmsda_{digest.hexdigest()[:16]}.so"
     if not so.exists():
@@ -85,6 +90,10 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ip, ip,
                              ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_bwd.restype = ci
+    lib.msda_fac_fwd.argtypes = lib.msda_fwd.argtypes
+    lib.msda_fac_fwd.restype = ci
+    lib.msda_fac_bwd.argtypes = lib.msda_bwd.argtypes
+    lib.msda_fac_bwd.restype = ci
     lib.msda_error_string.argtypes = [ci]
     lib.msda_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +149,39 @@ def _raise_on(lib, err, what):
             f"MSDA {what} kernel launch failed: {lib.msda_error_string(err).decode()} ({err})")
 
 
+def _launch_forward(entry, what, value, spatial_shapes, loc, attn):
+    _check(value, spatial_shapes, loc, attn)
+    B, S, M, D = value.shape
+    Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    lib = library()
+    out = torch.empty(B, Lq, M * D, dtype=value.dtype, device=value.device)
+    hw, level_start = _plan(spatial_shapes)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = getattr(lib, entry)(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), hw, level_start,
+        L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16), value.device.index, stream)
+    _raise_on(lib, err, what)
+    return out
+
+
+def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out):
+    _check(value, spatial_shapes, loc, attn, grad_out)
+    B, S, M, D = value.shape
+    Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    lib = library()
+    dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    hw, level_start = _plan(spatial_shapes)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    err = getattr(lib, entry)(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+        dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(), hw, level_start,
+        L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16), value.device.index, stream)
+    _raise_on(lib, err, what)
+    return dvalue.to(value.dtype), dloc, dattn
+
+
 def ms_deform_attn_cuda(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -148,19 +190,8 @@ def ms_deform_attn_cuda(
 ) -> torch.Tensor:
     """Launch the forward kernel on PyTorch's current stream. Raises on any
     input the kernel does not take, and when the launch is refused."""
-    _check(value, spatial_shapes, sampling_locations, attention_weights)
-    B, S, M, D = value.shape
-    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
-    lib = library()
-    out = torch.empty(B, Lq, M * D, dtype=value.dtype, device=value.device)
-    hw, level_start = _plan(spatial_shapes)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = lib.msda_fwd(
-        value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), out.data_ptr(), hw, level_start,
-        L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16),
-        value.device.index, stream)
-    _raise_on(lib, err, "forward")
+    out = _launch_forward("msda_fwd", "forward", value, spatial_shapes, sampling_locations,
+                          attention_weights)
     ms_deform_attn_cuda.launches += 1
     return out
 
@@ -180,23 +211,46 @@ def ms_deform_attn_backward_cuda(
     type). dvalue is summed in float32 by atomics and cast afterwards.
     Raises on any input the kernel does not take, and when the launch is
     refused."""
-    _check(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
-    B, S, M, D = value.shape
-    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
-    lib = library()
-    dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
-    dloc = torch.empty_like(sampling_locations)
-    dattn = torch.empty_like(attention_weights)
-    hw, level_start = _plan(spatial_shapes)
-    stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = lib.msda_bwd(
-        value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
-        grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
-        hw, level_start, L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16),
-        value.device.index, stream)
-    _raise_on(lib, err, "backward")
+    grads = _launch_backward("msda_bwd", "backward", value, spatial_shapes, sampling_locations,
+                             attention_weights, grad_out)
     ms_deform_attn_backward_cuda.launches += 1
-    return dvalue.to(value.dtype), dloc, dattn
+    return grads
 
 
 ms_deform_attn_backward_cuda.launches = 0
+
+
+def ms_deform_attn_fac_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the factorized forward kernel (`msda_fac_fwd.cu`) on
+    PyTorch's current stream; as `ms_deform_attn_cuda` otherwise."""
+    out = _launch_forward("msda_fac_fwd", "factorized forward", value, spatial_shapes,
+                          sampling_locations, attention_weights)
+    ms_deform_attn_fac_cuda.launches += 1
+    return out
+
+
+ms_deform_attn_fac_cuda.launches = 0
+
+
+def ms_deform_attn_fac_backward_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the factorized backward kernel (`msda_fac_bwd.cu`) on
+    PyTorch's current stream; as `ms_deform_attn_backward_cuda` otherwise
+    (dvalue summed in float32 by atomics, not deterministic)."""
+    grads = _launch_backward("msda_fac_bwd", "factorized backward", value, spatial_shapes,
+                             sampling_locations, attention_weights, grad_out)
+    ms_deform_attn_fac_backward_cuda.launches += 1
+    return grads
+
+
+ms_deform_attn_fac_backward_cuda.launches = 0
