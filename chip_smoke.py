@@ -4,9 +4,10 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
-  2. build: compiles the MSDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu,
-     csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu), one nvcc per source,
-     started together;
+  2. build: compiles the kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu,
+     csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu, and the research kernels
+     csrc/msda_onlyg.cu, csrc/msda_xdot.cu, csrc/probe_lane_slice.cu,
+     csrc/probe_gather.cu), one nvcc per source, started together;
   3. forward kernel against its plain version (`ms_deform_attn_torch`) at
      the serving path's encoder and decoder shapes in float32 and bfloat16,
      and at an out-of-range-heavy, an odd-D and a >128-side case; times the
@@ -21,6 +22,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain versions on the same kinds of cases plus a side of one: forward,
      dattn and dloc bit-identical, dvalue within TOL; held against the
      gather kernels on the same inputs (TOL); timed like 3 and 3b;
+  3d. the research entry points (`uvhand_tpu_torch/scripts/`), the slice's
+     own path, counts from 0: the MSDA ablation bench's timing mode times
+     every variant of the TPU bench in bf16 and float32 at its shapes
+     (B=16, M=8, D=32, Lq=S=1045), each against its plain version (the
+     ablation backward `msda_ablate_bwd`, the dense `msda_onlyg`, the
+     `xdot` variant with `msda_xdot`, and the design variants through the
+     landed kernels), and the lane-slice and gather probes time their
+     kernels (exact; device time from the profiler) beside `torch.mul` /
+     `torch.gather`; each kernel's launches must equal the calls the entry
+     points made, and the phase's wall clock is logged. Then the bench's
+     --check mode holds every variant's kernel against its plain version at
+     the TPU check shapes in float32 and bf16 (launches checked, not
+     counted). Every model path below must launch none of the research
+     kernels;
   4. serving path: `UVHandDETR` at full width (ResNet-50, 224x224, d=256,
      6+6 layers, 300 queries, 4 levels x 4 points, two-stage, box refine,
      float32) with seeded random weights serves three batches of 16
@@ -81,6 +96,8 @@ from uvhand_tpu_torch.ops import msda_cuda
 from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
+from uvhand_tpu_torch.scripts import bench_msda_ablation, probe_dynamic_lane_slice, probe_gather
+from uvhand_tpu_torch.scripts.measure import median_ms, msda_bound_ms, msda_bwd_bound_ms
 from uvhand_tpu_torch.train.state import create_optimizer, label_params
 
 SEED = 0
@@ -92,18 +109,25 @@ FP32_TRAIN_STEPS = 2  # fewer float32 steps, to leave time for the bf16 and FAC 
 MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 # level shapes of a 224x224 image: strides 8, 16, 32 and the extra stride-64 level
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-FP32_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 KEYS = ("pred_logits", "pred_hand_key", "pred_obj_key")  # the outputs held end to end
+#: the research entry points' kernels (phase 3d), which no model path launches
+RESEARCH = {
+    "msda_ablate_bwd": msda_cuda.ms_deform_attn_ablate_backward_cuda,
+    "msda_onlyg": msda_cuda.ms_deform_attn_onlyg_cuda,
+    "msda_xdot": msda_cuda.ms_deform_attn_xdot_cuda,
+    "probe_lane_slice": msda_cuda.lane_slice_cuda,
+    "probe_gather": msda_cuda.take_along_axis_cuda,
+}
 #: every kernel wrapper by its kernel's name; each counts its launches
 KERNELS = {
     "msda_fwd": msda_cuda.ms_deform_attn_cuda,
     "msda_bwd": msda_cuda.ms_deform_attn_backward_cuda,
     "msda_fac_fwd": msda_cuda.ms_deform_attn_fac_cuda,
     "msda_fac_bwd": msda_cuda.ms_deform_attn_fac_backward_cuda,
+    **RESEARCH,
 }
 
 
@@ -131,81 +155,6 @@ def msda_inputs(gen, B, Lq, M, D, P, shapes, lo, hi, dtype):
     return value, loc, attn.view(B, Lq, M, L, P).to(dtype)
 
 
-def in_map_corners(shapes, loc) -> int:
-    """Bilinear corners of this call's samples that fall inside their map."""
-    Ws = torch.tensor([w for _, w in shapes], device=loc.device, dtype=torch.float32)
-    Hs = torch.tensor([h for h, _ in shapes], device=loc.device, dtype=torch.float32)
-    px = loc[..., 0] * Ws[:, None] - 0.5
-    py = loc[..., 1] * Hs[:, None] - 0.5
-    corners = 0
-    for dy in (0, 1):
-        cy = torch.floor(py) + dy
-        for dx in (0, 1):
-            cx = torch.floor(px) + dx
-            corners += int(((cx >= 0) & (cx < Ws[:, None]) & (cy >= 0) & (cy < Hs[:, None])).sum())
-    return corners
-
-
-def bound_ms(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def msda_bound_ms(value, shapes, loc, attn):
-    """Least time for one forward call: compulsory bytes (each input read
-    once, the output written once) over HBM bandwidth, or the float32
-    operations that this call's in-map corners need over the non-tensor-core
-    peak."""
-    B, S, M, D = value.shape
-    out_bytes = B * loc.shape[1] * M * D * value.element_size()
-    # per point: 2 products + 2 subtractions for the pixel coordinates; per
-    # in-map corner: 3 for the tent, 2 for the weight, 2 per channel
-    ops = loc[..., 0].numel() * 4 + in_map_corners(shapes, loc) * (5 + 2 * D)
-    return bound_ms(nbytes(value, loc, attn) + out_bytes, ops)
-
-
-def msda_bwd_bound_ms(value, shapes, loc, attn, grad):
-    """Least time for one backward call: value, locations, attention and the
-    incoming gradient read once, dvalue / dloc / dattn written once (in the
-    value's, float32 and the attention's types), or the float32 operations
-    of this call's in-map corners."""
-    D = value.shape[-1]
-    # per point: 4 for the pixel coordinates; per in-map corner: ~12 for the
-    # tents, signs, weights and the three per-point sums, and per channel a
-    # product and a sum for the dot and a product and an add for dvalue
-    ops = loc[..., 0].numel() * 4 + in_map_corners(shapes, loc) * (12 + 4 * D)
-    return bound_ms(2 * nbytes(value, loc, attn) + nbytes(grad), ops)
-
-
-def script_kernel_bounds():
-    """Bounds of the research scripts' TPU kernels (PERF.md rows S1, S2) at
-    each script's own shapes, on this card's rates: each is a pass over a
-    few arrays, so bytes bound it. Arithmetic only; nothing runs."""
-    f32, bf16 = 4, 2
-    B, S, M, D, LP = 16, 1045, 8, 32, 16  # scripts/bench_msda_ablation.py:1302
-    for name, vb in (("bf16", bf16), ("fp32", f32)):
-        value, loc, attn = B * S * M * D * vb, B * S * M * LP * 2 * f32, B * S * M * LP * vb
-        fwd = value + loc + attn + value  # + the output
-        bwd = 2 * (value + loc + attn) + value  # + g in; dvalue, dloc, dattn out
-        log(f"[bounds] S1 bench_msda_ablation variants ({name}): forward "
-            f"{bound_ms(fwd, 0)[0]:.4f} ms, backward {bound_ms(bwd, 0)[0]:.4f} ms (bytes)")
-    # probe_dynamic_lane_slice.py:39 reads (1048, 128) and writes (8384, 16), float32
-    log(f"[bounds] S2 probe_dynamic_lane_slice (1048x128 in, 8384x16 out, f32): "
-        f"{bound_ms(2 * 1048 * 128 * f32, 0)[0] * 1e3:.3f} us (bytes)")
-    # repro_dynamic_gather.py:9 and probe_gather_scale.py:66: indices and values
-    # read, the gathered values written, int32 / float32
-    for shape in ((1, 1408, 128), (8, 1048, 128), (1, 1048, 256), (1, 1048, 1408),
-                  (16, 1048, 1408), (128, 8, 128)):
-        n = int(np.prod(shape))
-        log(f"[bounds] S2 gather probe {'x'.join(map(str, shape))}: "
-            f"{bound_ms(3 * n * f32, 0)[0] * 1e3:.3f} us (bytes)")
-
-
 def grid_sample_msda(value, shapes, loc, attn):
     """The reference's pure-PyTorch MSDA formula, one grid_sample per level."""
     B, S, M, D = value.shape
@@ -222,21 +171,6 @@ def grid_sample_msda(value, shapes, loc, attn):
         out = out + (s * a).sum(-1)
         start += H * W
     return out.view(B, M, D, Lq).permute(0, 3, 1, 2).reshape(B, Lq, M * D)
-
-
-def median_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def kernel_phase():
@@ -438,6 +372,105 @@ def fac_kernel_phase():
         log(f"[fac] {name}: per-level grid_sample composition (yardstick only, not one "
             f"library call) forward {gs:.4f} ms, autograd backward {gs_bwd:.4f} ms")
     return timed, max_err
+
+
+def research_phase():
+    """Phase 3d: the research entry points, the slice's own path. With every
+    count at 0, the ablation bench's timing mode runs every variant in bf16
+    and in float32, and the two probes run; each kernel's launches must be
+    exactly the calls the entry points made. Then the bench's --check mode
+    holds every variant's kernel against its plain version in float32 and
+    bf16 (launches checked, not counted on the path). Returns the numbers
+    and the path's launches."""
+    def tagged(tag):
+        return lambda line: log(f"[ablation] {tag} {line}")
+
+    reset_counts()
+    bench, made = {}, {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        res, calls, xdot = bench_msda_ablation.bench(list(bench_msda_ablation.VARIANTS), dtype,
+                                                     "cuda", log=tagged(tag))
+        bench[tag] = (res, xdot)
+        for name, n in bench_msda_ablation.card_launches(calls).items():
+            made[name] = made.get(name, 0) + n
+    lane = probe_dynamic_lane_slice.run("cuda", log=log)
+    gathers = probe_gather.run("cuda", log=log)
+    made["probe_lane_slice"] = lane["calls"]
+    made["probe_gather"] = sum(r["calls"] for r in gathers)
+    counts = read_counts()
+    want = {name: made.get(name, 0) for name in KERNELS}
+    log(f"[ablation] launches of the research path: {json.dumps(counts)}")
+    if counts != want:
+        raise AssertionError(f"research path: launches {counts}, expected {want}")
+    check_err = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        before = read_counts()
+        rows, calls = bench_msda_ablation.check(list(bench_msda_ablation.VARIANTS), dtype,
+                                                "cuda", log=tagged(f"--check {tag}"))
+        delta = {n: c - before[n] for n, c in read_counts().items()}
+        made_check = bench_msda_ablation.card_launches(calls)
+        if delta != {n: made_check.get(n, 0) for n in KERNELS}:
+            raise AssertionError(f"--check {tag}: launches {delta}, made {dict(made_check)}")
+        if tag == "fp32":
+            for r in rows:
+                kernel = bench_msda_ablation.ROUTES[bench_msda_ablation.VARIANTS[
+                    r["variant"]][0]][0]
+                check_err[kernel] = max(check_err.get(kernel, 0.0), r["max_abs_err"])
+    return dict(ablation=bench, lane=lane, gathers=gathers, check_err=check_err, launches=counts)
+
+
+def research_rows(numbers, by_path):
+    """The `kernels` JSON rows of the research kernels from phase 3d's
+    numbers; `by_path(name)` gives a kernel's launches on every path."""
+    ablation, lane, gathers = numbers["ablation"], numbers["lane"], numbers["gathers"]
+    src = "uvhand_tpu_torch/ops/csrc/"
+    bench_script = "scripts/bench_msda_ablation.py"
+
+    def row(name, nums, fp32_err, **extra):
+        return {"name": name, "route": "cuda", "launches": numbers["launches"][name],
+                "launches_by_path": by_path(name), "max_abs_err": fp32_err,
+                **{k: nums[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": nums.get("library_ms"), **extra}
+
+    def fp32_err(kernel):
+        # the --check shapes and the bench's shapes
+        res, xdot = ablation["fp32"]
+        errs = [r["max_abs_err"] for r in res.values() if r["kernel"] == kernel]
+        if kernel == "msda_xdot":
+            errs.append(xdot["max_abs_err"])
+        return max(errs + [numbers["check_err"].get(kernel, 0.0)])
+
+    def variants_ms(kernel):
+        return {tag: {v: r["ms"] for v, r in ablation[tag][0].items() if r["kernel"] == kernel}
+                for tag in ablation}
+
+    bf16, xdot_bf16 = ablation["bf16"]
+    fp32, xdot_fp32 = ablation["fp32"]
+    biggest = max(gathers, key=lambda r: r["bound_ms"])
+    return [
+        row("msda_ablate_bwd", bf16["full"], fp32_err("msda_ablate_bwd"),
+            source=src + "msda_bwd.cu (entry msda_ablate_bwd)",
+            replaces=f"{bench_script}:1215 (variants full, matred, signfree, fused, eqgate, "
+                     "eqred, nodpy, nodaw, nodv)",
+            dtype="bfloat16", ms_by_variant=variants_ms("msda_ablate_bwd")),
+        row("msda_onlyg", bf16["onlyg"], fp32_err("msda_onlyg"), source=src + "msda_onlyg.cu",
+            replaces=f"{bench_script}:1215 (variant onlyg)", dtype="bfloat16",
+            ms_fp32=fp32["onlyg"]["ms"], bound_ms_fp32=fp32["onlyg"]["bound_ms"],
+            library_ms_fp32=fp32["onlyg"]["library_ms"]),
+        row("msda_xdot", xdot_bf16, fp32_err("msda_xdot"), source=src + "msda_xdot.cu",
+            replaces=f"{bench_script}:1182", dtype="bfloat16", ms_fp32=xdot_fp32["ms"],
+            bound_ms_fp32=xdot_fp32["bound_ms"], whole_variant_ms=variants_ms("msda_xdot")),
+        row("probe_lane_slice", lane, lane["max_abs_err"], source=src + "probe_lane_slice.cu",
+            replaces="scripts/probe_dynamic_lane_slice.py:39", dtype="float32",
+            launched_ms=lane["launched_ms"]),
+        row("probe_gather", biggest, max(r["max_abs_err"] for r in gathers),
+            source=src + "probe_gather.cu",
+            replaces="scripts/repro_dynamic_gather.py:31, scripts/probe_gather_scale.py:28",
+            dtype="float32", case=biggest["case"],
+            cases={r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "gelem_per_s", "launched_ms")}
+                   for r in gathers}),
+    ]
 
 
 # ------------------------------------------------------------ 4. main path
@@ -920,7 +953,11 @@ def main() -> int:
     timed, max_err = kernel_phase()
     btimed, bmax_err = backward_kernel_phase()
     ftimed, fmax_err = fac_kernel_phase()
-    script_kernel_bounds()
+
+    # 3d. the research entry points (S1, S2)
+    t0 = time.perf_counter()
+    research_numbers = research_phase()
+    log(f"[ablation] phase 3d took {time.perf_counter() - t0:.2f} s of wall clock")
 
     # 4. main path
     model, world = build_world("cuda")
@@ -984,11 +1021,19 @@ def main() -> int:
         "path's (msda_bwd) and the FAC bf16 paths' (msda_fac_*); launches_by_path gives every "
         "path's count")
 
+    log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
+        "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
+        "for the probes (probe_gather: its largest case, every case under cases; the probes' "
+        "ms, plain_ms and library_ms are device time from the profiler, launched_ms the time "
+        "as launched from CUDA events); launches are phase 3d's (the research path), 0 on every "
+        "model path")
+
     def by_path(name):
         return {"serve_fp32": serve_fp32[name], "train_fp32": train_fp32[name],
                 "serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 "serve_bf16_fac": serve_fac[name], "train_bf16_fac": train_fac[name],
-                "serve_fp32_fac": serve_fac_fp32[name]}
+                "serve_fp32_fac": serve_fac_fp32[name],
+                "research": research_numbers["launches"][name]}
 
     src = "uvhand_tpu_torch/ops/csrc/"
     log(json.dumps({"kernels": [
@@ -1008,6 +1053,7 @@ def main() -> int:
          "replaces": "uvhand_tpu/ops/msda_pallas.py:429", "launches": train_fac["msda_fac_bwd"],
          "launches_by_path": by_path("msda_fac_bwd"), "dtype": "bfloat16",
          "max_abs_err": fmax_err["bwd"], **per_call(ftimed["bwd"], "bf16"), "library_ms": None},
+        *research_rows(research_numbers, by_path),
     ]}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,19 @@ built without fused multiply-add and matches bit for bit in practice) and
 (dvalue is summed by atomics in no fixed order) and 2e-2 in bfloat16. The
 two formulations against each other on the same inputs: the same tolerances
 (in bfloat16 they round at different places).
+
+The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
+`uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
+backward's dpy, dpx and daw and every output of `msda_xdot` bit-identical to
+their plain versions, the ablation's dvalue (atomics) and `msda_onlyg`'s
+dvalue (another summation order) within 1e-5 of their max, `msda_onlyg`'s
+daw bit-identical; the probes exact.
 """
 
 import pytest
 import torch
 
-from uvhand_tpu_torch.ops import msda_cuda
+from uvhand_tpu_torch.ops import msda_ablation, msda_cuda, probes
 from uvhand_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
@@ -189,3 +196,150 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda, form):
         bwd(value, shapes, loc, attn, grad[:, :4].contiguous())
     with pytest.raises(ValueError, match="CUDA tensors"):
         bwd(value.cpu(), shapes, loc.cpu(), attn.cpu(), grad.cpu())
+
+
+ABLATION_CASES = ["decoder", "odd_d", "side_over_128", "integer_exact"]
+
+
+def ablation_inputs(case, dtype, device):
+    value, shapes, loc, attn, gen = make_inputs(case, dtype, device)
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=device).to(dtype)
+    return value, shapes, loc, attn, grad
+
+
+def assert_matches(name, got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.isfinite(got.float()).all(), name
+    if tol == 0.0:
+        assert torch.equal(got, want), (name, (got.float() - want.float()).abs().max().item())
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * max(want.float().abs().max().item(), 1e-12), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", msda_ablation.GATES)
+@pytest.mark.parametrize("out", msda_ablation.OUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ABLATION_CASES)
+def test_ablation_kernel_matches_plain(cuda, case, dtype, out, gate):
+    args = ablation_inputs(case, dtype, cuda)
+    kernel = msda_cuda.ms_deform_attn_ablate_backward_cuda
+    before = kernel.launches
+    got = kernel(*args, out=out, gate=gate)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = msda_ablation.ablate_backward_torch(*args, out=out, gate=gate)
+    for name, g, w in zip(("dv", "dpy", "dpx", "daw"), got, want):
+        assert_matches(name, g, w, 1e-5 if name == "dv" else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["decoder", "odd_d", "side_over_128"])
+def test_onlyg_kernel_matches_plain(cuda, case, dtype):
+    args = ablation_inputs(case, dtype, cuda)
+    kernel = msda_cuda.ms_deform_attn_onlyg_cuda
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = msda_ablation.onlyg_torch(*args)
+    for name, g, w in zip(("dv", "dpy", "dpx", "daw"), got, want):
+        assert_matches(name, g, w, 1e-5 if name == "dv" else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ABLATION_CASES)
+def test_xdot_kernel_matches_plain(cuda, case, dtype):
+    value, shapes, loc, attn, grad = ablation_inputs(case, dtype, cuda)
+    G = msda_ablation.dense_plane(value, grad)
+    kernel = msda_cuda.ms_deform_attn_xdot_cuda
+    before = kernel.launches
+    got = kernel(G, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = msda_ablation.xdot_torch(G, shapes, loc, attn)
+    for name, g, w in zip(("dpy", "dpx", "daw", "ws"), got, want):
+        assert_matches(name, g, w, 0.0)
+
+
+@pytest.mark.cuda
+def test_lane_slice_kernel_matches_plain(cuda):
+    x = torch.randn(1048, 128, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    before = msda_cuda.lane_slice_cuda.launches
+    got = msda_cuda.lane_slice_cuda(x, 8, 16)
+    torch.cuda.synchronize()
+    assert msda_cuda.lane_slice_cuda.launches == before + 1
+    assert torch.equal(got, probes.lane_slice_torch(x, 8, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((1408, 128), 0), ((1408, 128), 1), ((1408, 128), -1),
+                                        ((8, 1048, 128), 2), ((3, 40, 1408), 1),
+                                        ((128, 8, 128), -2)])
+def test_gather_kernel_matches_plain(cuda, shape, axis):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    v = torch.randn(shape, generator=gen, device=cuda)
+    idx = torch.randint(0, shape[axis], shape, generator=gen, device=cuda, dtype=torch.int32)
+    before = msda_cuda.take_along_axis_cuda.launches
+    got = msda_cuda.take_along_axis_cuda(v, idx, axis)
+    torch.cuda.synchronize()
+    assert msda_cuda.take_along_axis_cuda.launches == before + 1
+    assert torch.equal(got, probes.take_along_axis_torch(v, idx, axis))
+    idx.view(-1)[0] = shape[axis]  # out of range: NaN, never a read outside v
+    assert torch.isnan(msda_cuda.take_along_axis_cuda(v, idx, axis).view(-1)[0])
+
+
+@pytest.mark.cuda
+def test_research_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    shapes = ((4, 4),)
+    value = torch.randn(1, 16, 2, 8, device=cuda)
+    loc = torch.rand(1, 5, 2, 1, 2, 2, device=cuda)
+    attn = torch.rand(1, 5, 2, 1, 2, device=cuda)
+    grad = torch.randn(1, 5, 16, device=cuda)
+    ablate = msda_cuda.ms_deform_attn_ablate_backward_cuda
+    onlyg = msda_cuda.ms_deform_attn_onlyg_cuda
+    xdot = msda_cuda.ms_deform_attn_xdot_cuda
+    for fn in (ablate, onlyg):
+        with pytest.raises(TypeError):
+            fn(value.double(), shapes, loc, attn.double(), grad.double())
+        with pytest.raises(ValueError, match="grad_out must be"):
+            fn(value, shapes, loc, attn, grad[:, :4].contiguous())
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(value.cpu(), shapes, loc.cpu(), attn.cpu(), grad.cpu())
+    with pytest.raises(ValueError, match="unknown ablation"):
+        ablate(value, shapes, loc, attn, grad, out="nodx")
+    with pytest.raises(ValueError, match="level 0"):  # 1 token, L * P = 4
+        onlyg(value, ((1, 1), (3, 5)), torch.rand(1, 5, 2, 2, 2, 2, device=cuda),
+              torch.rand(1, 5, 2, 2, 2, device=cuda), grad)
+    G = torch.randn(2, 5, 16, device=cuda)
+    with pytest.raises(TypeError):
+        xdot(G.bfloat16(), shapes, loc, attn)
+    with pytest.raises(ValueError, match="G must be"):
+        xdot(G[:, :4].contiguous(), shapes, loc, attn)
+    with pytest.raises(ValueError, match="contiguous"):
+        xdot(G.transpose(0, 1).contiguous().transpose(0, 1), shapes, loc, attn)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        xdot(G.cpu(), shapes, loc, attn)
+    # what only the C entries refuse, through the launch's error code
+    with pytest.raises(RuntimeError, match="D <= 116"):
+        onlyg(torch.randn(1, 16, 2, 128, device=cuda), shapes, loc, attn,
+              torch.randn(1, 5, 256, device=cuda))
+    with pytest.raises(RuntimeError, match="S <= 12288"):
+        xdot(torch.randn(2, 5, 111 * 111, device=cuda), ((111, 111),), loc, attn)
+    x = torch.randn(16, 32, device=cuda)
+    with pytest.raises(TypeError):
+        msda_cuda.lane_slice_cuda(x.double(), 2, 16)
+    with pytest.raises(ValueError, match="M\\*W"):
+        msda_cuda.lane_slice_cuda(x, 4, 16)
+    idx = torch.zeros(16, 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        msda_cuda.take_along_axis_cuda(x, idx.long(), 1)
+    with pytest.raises(ValueError, match="one 2-D or 3-D shape"):
+        msda_cuda.take_along_axis_cuda(x, idx[:8].contiguous(), 1)
+    with pytest.raises(ValueError, match="last two axes"):
+        msda_cuda.take_along_axis_cuda(x[None].contiguous(), idx[None].contiguous(), 0)

@@ -53,6 +53,23 @@
 // makes twice the requests (a read and an atomic per corner), so it is
 // expected to sit well above its byte bound. Staging value tiles in shared
 // memory, TMA and wgmma are left for later work.
+//
+// The same kernel body also serves the research ablation of the backward
+// (`uvhand_tpu_torch/scripts/bench_msda_ablation.py`; the TPU kernel `kernel`
+// of scripts/bench_msda_ablation.py:1064), through two compile-time
+// parameters and the entry `msda_ablate_bwd`:
+//   - Out: Model writes the production outputs (dloc after the chain rule,
+//     dattn in the attention's type); Pixel writes dpy, dpx and daw as
+//     float32 (B, Lq, M, L, P) before the chain rule; PixelNoDpy,
+//     PixelNoDaw and PixelNoDv drop one output's work: dpy = dpx = a,
+//     daw = a, or no weight and no atomics at all (dvalue stays the
+//     caller's zeros), so that the ablation times what each output costs.
+//   - Gate: Where is sign(d) where the tent is > 0, else 0 (the production
+//     gate); Eq is the TPU's equality gate [s == floor(p)] - [s == floor(p)
+//     + 1], +1 on the near corner and -1 on the far one whatever the tent,
+//     which differs from Where only at integer-exact coordinates.
+// The production launch is <T, Out::Model, Gate::Where>: `if constexpr`
+// leaves its code as it was.
 
 #include "msda_common.cuh"
 
@@ -60,13 +77,21 @@ namespace {
 
 using namespace msda;
 
-template <typename T>
+enum class Out { Model, Pixel, PixelNoDpy, PixelNoDaw, PixelNoDv };
+enum class Gate { Where, Eq };
+
+template <typename T, Out kOut = Out::Model, Gate kGate = Gate::Where>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const T* __restrict__ attn, const T* __restrict__ grad,
                 float* __restrict__ dvalue, float* __restrict__ dloc,
                 T* __restrict__ dattn, LevelPlan plan,
-                int B, int S, int Lq, int M, int D, int P) {
+                int B, int S, int Lq, int M, int D, int P,
+                float* __restrict__ dpy = nullptr, float* __restrict__ dpx = nullptr,
+                float* __restrict__ daw = nullptr) {
+  constexpr bool kDv = kOut != Out::PixelNoDv;
+  constexpr bool kDp = kOut != Out::PixelNoDpy;
+  constexpr bool kDa = kOut != Out::PixelNoDaw;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= (long long)B * Lq * M) return;  // uniform across the warp
@@ -77,7 +102,7 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   const float* loc_row = loc + row * (long long)(L * P * 2);
   const T* attn_row = attn + row * (long long)(L * P);
   const T* g_row = grad + row * (long long)D;
-  float* dloc_row = dloc + row * (long long)(L * P * 2);
+  float* dloc_row = dloc + row * (long long)(L * P * 2);  // unused unless kOut is Model
   T* dattn_row = dattn + row * (long long)(L * P);
   const long long bm_off = (long long)b * S * M * D + (long long)m * D;
 
@@ -99,12 +124,22 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       for (int dy = 0; dy < 2; ++dy) {
         const float cy = y0 + (float)dy;
         const float hy = 1.0f - fabsf(py - cy);
-        const float sy = hy > 0.0f ? sign_of(py - cy) : 0.0f;
+        float sy;
+        if constexpr (kGate == Gate::Eq) {
+          sy = dy == 0 ? 1.0f : -1.0f;
+        } else {
+          sy = hy > 0.0f ? sign_of(py - cy) : 0.0f;
+        }
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const float cx = x0 + (float)dx;
           const float hx = 1.0f - fabsf(px - cx);
-          const float sx = hx > 0.0f ? sign_of(px - cx) : 0.0f;
+          float sx;
+          if constexpr (kGate == Gate::Eq) {
+            sx = dx == 0 ? 1.0f : -1.0f;
+          } else {
+            sx = hx > 0.0f ? sign_of(px - cx) : 0.0f;
+          }
           const bool valid = cx >= 0.0f && cx < fW && cy >= 0.0f && cy < fH;
           if (!valid) continue;  // uniform across the warp
           const float wc = hy * hx;
@@ -119,19 +154,28 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
             if (d < D) {
               const float gd = to_float(g_row[d]);
               gv = gd * to_float(v_c[d]);
-              atomicAdd(dv_c + d, aw * gd);
+              if constexpr (kDv) atomicAdd(dv_c + d, aw * gd);
             }
             dot = dot + warp_sum(gv);
           }
-          da = da + wc * dot;
-          gx = gx + (sx * hy) * dot;
-          gy = gy + (sy * hx) * dot;
+          if constexpr (kDa) da = da + wc * dot;
+          if constexpr (kDp) {
+            gx = gx + (sx * hy) * dot;
+            gy = gy + (sy * hx) * dot;
+          }
         }
       }
       if (lane == 0) {
-        store(dattn_row + k, da);
-        dloc_row[2 * k] = -(a * gx) * fW;
-        dloc_row[2 * k + 1] = -(a * gy) * fH;
+        if constexpr (kOut == Out::Model) {
+          store(dattn_row + k, da);
+          dloc_row[2 * k] = -(a * gx) * fW;
+          dloc_row[2 * k + 1] = -(a * gy) * fH;
+        } else {
+          const long long o = row * (long long)(L * P) + k;
+          dpy[o] = kDp ? -(a * gy) : a;
+          dpx[o] = kDp ? -(a * gx) : a;
+          daw[o] = kDa ? da : a;
+        }
       }
     }
   }
@@ -163,5 +207,67 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
         (const float*)grad, (float*)dvalue, (float*)dloc, (float*)dattn,
         plan, B, S, Lq, M, D, P);
   }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <typename T, Out kOut>
+void launch_ablate(int gate, unsigned blocks, cudaStream_t s, const void* value, const void* loc,
+                   const void* attn, const void* grad, void* dvalue, void* dpy, void* dpx,
+                   void* daw, const LevelPlan& plan, int B, int S, int Lq, int M, int D, int P) {
+  const auto run = [&](auto kernel) {
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        (const T*)value, (const float*)loc, (const T*)attn, (const T*)grad, (float*)dvalue,
+        nullptr, nullptr, plan, B, S, Lq, M, D, P, (float*)dpy, (float*)dpx, (float*)daw);
+  };
+  if (gate == 1) {
+    run(msda_bwd_kernel<T, kOut, Gate::Eq>);
+  } else {
+    run(msda_bwd_kernel<T, kOut, Gate::Where>);
+  }
+}
+
+template <typename T>
+int dispatch_ablate(int out, int gate, unsigned blocks, cudaStream_t s, const void* value,
+                    const void* loc, const void* attn, const void* grad, void* dvalue, void* dpy,
+                    void* dpx, void* daw, const LevelPlan& plan, int B, int S, int Lq, int M,
+                    int D, int P) {
+  switch (out) {
+    case 0: launch_ablate<T, Out::Pixel>(gate, blocks, s, value, loc, attn, grad, dvalue, dpy,
+                                         dpx, daw, plan, B, S, Lq, M, D, P); break;
+    case 1: launch_ablate<T, Out::PixelNoDpy>(gate, blocks, s, value, loc, attn, grad, dvalue,
+                                              dpy, dpx, daw, plan, B, S, Lq, M, D, P); break;
+    case 2: launch_ablate<T, Out::PixelNoDaw>(gate, blocks, s, value, loc, attn, grad, dvalue,
+                                              dpy, dpx, daw, plan, B, S, Lq, M, D, P); break;
+    case 3: launch_ablate<T, Out::PixelNoDv>(gate, blocks, s, value, loc, attn, grad, dvalue,
+                                             dpy, dpx, daw, plan, B, S, Lq, M, D, P); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// The ablation of the backward (see the note at the top): `out` 0 full,
+// 1 no dpy/dpx, 2 no daw, 3 no dvalue; `gate` 0 where, 1 equality. Outputs
+// dvalue (B, S, M, D) float32 zeroed by the caller and left so under out 3,
+// dpy, dpx, daw (B, Lq, M, L, P) float32 in pixel space. Returns the
+// cudaError_t of the launch.
+extern "C" int msda_ablate_bwd(const void* value, const void* loc, const void* attn,
+                               const void* grad, void* dvalue, void* dpy, void* dpx, void* daw,
+                               const int* hw, const int* level_start,
+                               int L, int B, int S, int Lq, int M, int D, int P,
+                               int out, int gate, int is_bf16, int device, void* stream) {
+  LevelPlan plan;
+  unsigned blocks = 0;
+  int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
+  if (err != 0 || blocks == 0) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = is_bf16 ? dispatch_ablate<__nv_bfloat16>(out, gate, blocks, s, value, loc, attn, grad,
+                                                 dvalue, dpy, dpx, daw, plan, B, S, Lq, M, D, P)
+                : dispatch_ablate<float>(out, gate, blocks, s, value, loc, attn, grad, dvalue,
+                                         dpy, dpx, daw, plan, B, S, Lq, M, D, P);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
