@@ -7,17 +7,24 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compiles the kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu,
      csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu, and the research kernels
      csrc/msda_onlyg.cu, csrc/msda_xdot.cu, csrc/probe_lane_slice.cu,
-     csrc/probe_gather.cu), one nvcc per source, started together;
-  3. forward kernel against its plain version (`ms_deform_attn_torch`) at
-     the serving path's encoder and decoder shapes in float32 and bfloat16,
-     and at an out-of-range-heavy, an odd-D and a >128-side case; times the
-     kernel, the plain version, the bound and a per-level `F.grid_sample`
-     composition (a yardstick only; the port never calls it);
-  3b. backward kernel against its plain version
-     (`ms_deform_attn_torch_backward`) on the same cases plus an
+     csrc/probe_gather.cu), one nvcc per source, started together, and
+     prints each kernel's registers, static shared memory and spills
+     (`-Xptxas -v`);
+  3. forward kernels against their plain version (`ms_deform_attn_torch`)
+     at the serving path's encoder and decoder shapes in float32 and
+     bfloat16, and at an out-of-range-heavy, an odd-D, a >128-side case and
+     one case each just inside and just outside the shared-memory limit:
+     the staged kernel wherever the shapes have a staged plan and the
+     general kernel on every case, both exact in float32; times both in
+     turns at the four model shapes, the plain version, the bound and a
+     per-level `F.grid_sample` composition (a yardstick only; the port
+     never calls it);
+  3b. backward kernels against their plain version
+     (`ms_deform_attn_torch_backward`) on the same kinds of cases plus an
      integer-exact one (every sample on a tent's kink), float32 and
-     bfloat16, a >128 side in both; times it like the forward, with the
-     grid_sample composition's autograd backward as the yardstick;
+     bfloat16, a >128 side in both, staged and general as in 3; times them
+     like the forward, with the grid_sample composition's autograd backward
+     as the yardstick;
   3c. the factorized kernels (msda_fac_fwd, msda_fac_bwd) against their
      plain versions on the same kinds of cases plus a side of one: forward,
      dattn and dloc bit-identical, dvalue within TOL; held against the
@@ -35,13 +42,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      --check mode holds every variant's kernel against its plain version at
      the TPU check shapes in float32 and bf16 (launches checked, not
      counted). Every model path below must launch none of the research
-     kernels;
+     kernels; at these shapes every gather op runs its staged kernel;
+  3e. the gather op's general path: `ms_deform_attn` and its backward on a
+     64x64 float32 level (beyond shared memory) launch the general
+     kernels once each and agree with the plain versions;
   4. serving path: `UVHandDETR` at full width (ResNet-50, 224x224, d=256,
      6+6 layers, 300 queries, 4 levels x 4 points, two-stage, box refine,
      float32) with seeded random weights serves three batches of 16
-     synthetic frames through `engine.make_eval_step`; the forward kernel's
-     launch count must rise by exactly 12 per batch, the backward's not at
-     all;
+     synthetic frames through `engine.make_eval_step`; the forward's
+     launch count must rise by exactly 12 per batch, all of them the staged
+     kernel's, the backward's not at all;
   5. the same batch with the plain MSDA version must give the same outputs
      and metric rows;
   6. profile: host-clock times of the serving stages of one batch, and a
@@ -52,8 +62,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. training path: `engine.make_fused_train_step` (dropout 0.1, feature mask
      0.3, AdamW lr 2e-4 / backbone 2e-5, clip 0.1) takes 2 steps on batches
      of 16 synthetic frames; per step every loss is finite, grad_norm is
-     finite and > 0, both kernels' launch counts rise by exactly 12 and the
-     parameters of every group move;
+     finite and > 0, the forward's and the backward's launch counts rise by
+     exactly 12 each (all staged, none general) and the parameters of every
+     group move;
   9. train profile: host-clock times of the train stages of one step, and a
      torch.profiler table of one step with the device's busy share;
   10. bf16 serving: the same model with `compute_dtype=torch.bfloat16` serves
@@ -80,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -93,11 +105,11 @@ from uvhand_tpu_torch.geometry import mano, objects
 from uvhand_tpu_torch.geometry.rotations import axis_angle_to_matrix, rotate_about_axis
 from uvhand_tpu_torch.models.detr import UVHandDETR
 from uvhand_tpu_torch.ops import msda_cuda
-from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn_fac_torch,
+from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
 from uvhand_tpu_torch.scripts import bench_msda_ablation, probe_dynamic_lane_slice, probe_gather
-from uvhand_tpu_torch.scripts.measure import median_ms, msda_bound_ms, msda_bwd_bound_ms
+from uvhand_tpu_torch.scripts.measure import device_ms, median_ms, msda_bound_ms, msda_bwd_bound_ms
 from uvhand_tpu_torch.train.state import create_optimizer, label_params
 
 SEED = 0
@@ -121,10 +133,20 @@ RESEARCH = {
     "probe_lane_slice": msda_cuda.lane_slice_cuda,
     "probe_gather": msda_cuda.take_along_axis_cuda,
 }
-#: every kernel wrapper by its kernel's name; each counts its launches
+#: the gather ops whose wrappers pick a staged or a general kernel, and the
+#: counts of each kernel's launches
+VARIANTS = {
+    "msda_fwd": {"staged": msda_cuda.FWD_STAGED, "general": msda_cuda.FWD_GENERAL},
+    "msda_bwd": {"staged": msda_cuda.BWD_STAGED, "general": msda_cuda.BWD_GENERAL},
+    "msda_ablate_bwd": {"staged": msda_cuda.ABLATE_STAGED, "general": msda_cuda.ABLATE_GENERAL},
+}
+#: every kernel wrapper by its kernel's name; each counts its launches (the
+#: gather ops' wrappers count both their kernels, `<op>_staged` and
+#: `<op>_general` each one)
 KERNELS = {
     "msda_fwd": msda_cuda.ms_deform_attn_cuda,
     "msda_bwd": msda_cuda.ms_deform_attn_backward_cuda,
+    **{f"{op}_{kind}": count for op, kinds in VARIANTS.items() for kind, count in kinds.items()},
     "msda_fac_fwd": msda_cuda.ms_deform_attn_fac_cuda,
     "msda_fac_bwd": msda_cuda.ms_deform_attn_fac_backward_cuda,
     **RESEARCH,
@@ -173,7 +195,60 @@ def grid_sample_msda(value, shapes, loc, attn):
     return out.view(B, M, D, Lq).permute(0, 3, 1, 2).reshape(B, Lq, M * D)
 
 
+def ptxas_lines(report):
+    """One line per kernel from the compiler's `-Xptxas -v` report: its
+    registers, static shared memory, stack and spills (the staged kernels'
+    shared memory is dynamic: their plan's bytes, printed by phases 3, 3b)."""
+    import re
+
+    entries, name, frame = [], None, ""
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, frame = m.group(1), ""
+        elif "bytes stack frame" in line:
+            frame = line.strip()
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries.append((name, f"{m.group(1)} registers, "
+                                  f"{smem.group(1) if smem else 0} bytes static smem; {frame}"))
+            name = None
+    if not entries:
+        return ["ptxas: no report (the library was built earlier)"]
+    names = [n for n, _ in entries]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True).stdout.splitlines()
+    return [f"ptxas {n}: {info}" for n, (_, info) in zip(names, entries)]
+
+
+def timing_line(times):
+    """The staged and general kernels' times of one case for a log line."""
+    return ", ".join(f"{kind} {t['ms']:.4f} ms (device {t['device_ms']:.4f})"
+                     for kind, t in times.items()) + (
+        " (ms: the lower of two CUDA-event medians, in turns general, staged, staged, general; "
+        "device: the profiler's device time a call)")
+
+
+def kernels_of(plan):
+    """The gather kernels to hold against the plain version on a case: the
+    staged one where the shapes have a plan, and the general one always."""
+    return ("staged", "general") if plan is not None else ("general",)
+
+
+#: one case each just inside and just outside the shared-memory limit
+#: (msda_cuda.SMEM_LIMIT = 232,448 bytes): a block stages 1816 float32 rows
+#: of 32 channels at most, the forward's whole slab or the backward's level
+EDGE = [("smem edge inside fp32", dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((8, 227),)),
+         (-0.1, 1.1), torch.float32, False),
+        ("smem edge outside fp32", dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((8, 228),)),
+         (-0.1, 1.1), torch.float32, False)]
+
+
 def kernel_phase():
+    """The forward kernels against `ms_deform_attn_torch`: the staged one
+    (where the shapes have a plan) and the general one on every case, each
+    timed at the four model shapes in the same run. Returns
+    ({case: {kernel: numbers}}, {kernel: largest float32 error})."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     enc = dict(B=BATCH, Lq=sum(h * w for h, w in LEVELS), M=8, D=32, P=4, shapes=LEVELS)
     dec = dict(enc, Lq=300)
@@ -190,34 +265,52 @@ def kernel_phase():
          (-0.2, 1.2), torch.bfloat16, False),
         ("side>128 fp32", dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((4, 200), (150, 3))),
          (-0.1, 1.1), torch.float32, False),
+        *EDGE,
     ]
     timed = {}
-    log("[kernel] forward (csrc/msda_fwd.cu) against ms_deform_attn_torch")
-    max_err = 0.0
+    log("[kernel] forward (csrc/msda_fwd.cu: staged and general) against ms_deform_attn_torch")
+    max_err = {"staged": 0.0, "general": 0.0}
     for name, shape, (lo, hi), dtype, is_timed in cases:
         shp = dict(shape)
         shapes = shp.pop("shapes")
         value, loc, attn = msda_inputs(gen, **shp, shapes=shapes, lo=lo, hi=hi, dtype=dtype)
-        out = msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn)
+        plan = msda_cuda.staged_plan(shapes, shp["D"], dtype)
         ref = ms_deform_attn_torch(value, shapes, loc, attn)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
-        rel = err / float(value.float().abs().max())
-        ok = bool(torch.isfinite(out.float()).all()) and rel <= TOL[dtype]
-        log(f"[kernel] {name}: max_abs_err={err:.3e} rel={rel:.3e} tol={TOL[dtype]:.0e} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"MSDA kernel disagrees with its plain version ({name})")
-        if dtype == torch.float32:
-            max_err = max(max_err, err)
+        for kind in kernels_of(plan):
+            out = msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn, kernel=kind)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            rel = err / float(value.float().abs().max())
+            # float32: both kernels repeat the plain version's order exactly
+            ok = (bool(torch.isfinite(out.float()).all())
+                  and (err == 0.0 if dtype == torch.float32 else rel <= TOL[dtype]))
+            log(f"[kernel] {name} {kind}: max_abs_err={err:.3e} rel={rel:.3e} "
+                f"{'(must be 0)' if dtype == torch.float32 else f'tol={TOL[dtype]:.0e}'} "
+                f"{'ok' if ok else 'FAIL'}"
+                + (f" (plan: {plan.smem} B of shared memory)" if kind == "staged" else ""))
+            if not ok:
+                raise AssertionError(f"MSDA {kind} kernel disagrees with its plain version "
+                                     f"({name})")
+            if dtype == torch.float32:
+                max_err[kind] = max(max_err[kind], err)
+        if plan is None and name.startswith(("encoder", "decoder")):
+            raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
-        ms = median_ms(lambda: msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn))
-        plain = median_ms(lambda: ms_deform_attn_torch(value, shapes, loc, attn), iters=5)
         bound, bound_by = msda_bound_ms(value, shapes, loc, attn)
-        timed[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by)
-        log(f"[kernel] {name}: kernel {ms:.4f} ms (median), plain {plain:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by})")
+        timed[name] = {}
+        for kind in ("general", "staged", "staged", "general"):  # in turns, on one card
+            ms = median_ms(lambda: msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn,
+                                                                 kernel=kind))
+            timed[name].setdefault(kind, []).append(ms)
+        plain = median_ms(lambda: ms_deform_attn_torch(value, shapes, loc, attn), iters=5)
+        for kind in ("staged", "general"):
+            dev = device_ms(lambda: msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn,
+                                                                  kernel=kind))
+            timed[name][kind] = dict(ms=min(timed[name][kind]), device_ms=dev, plain_ms=plain,
+                                     bound_ms=bound, bound_by=bound_by)
+        log(f"[kernel] {name}: {timing_line(timed[name])}, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by})")
         if dtype == torch.float32:
             gs_err = float((grid_sample_msda(value, shapes, loc, attn) - ref).abs().max())
             gs = median_ms(lambda: grid_sample_msda(value, shapes, loc, attn))
@@ -227,8 +320,10 @@ def kernel_phase():
 
 
 def backward_kernel_phase():
-    """The backward kernel against `ms_deform_attn_torch_backward`; every
-    gradient within TOL of its own max."""
+    """The backward kernels against `ms_deform_attn_torch_backward`: the
+    staged one (where the shapes have a plan) and the general one on every
+    case, every gradient within TOL of its own max; each timed at the four
+    model shapes in the same run."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     enc = dict(B=BATCH, Lq=sum(h * w for h, w in LEVELS), M=8, D=32, P=4, shapes=LEVELS)
     dec = dict(enc, Lq=300)
@@ -248,9 +343,11 @@ def backward_kernel_phase():
         ("side>128 bf16", side, (-0.1, 1.1), torch.bfloat16, False),
         ("integer-exact fp32", exact, (None, None), torch.float32, False),
         ("integer-exact bf16", exact, (None, None), torch.bfloat16, False),
+        *EDGE,
     ]
-    log("[bwd] backward (csrc/msda_bwd.cu) against ms_deform_attn_torch_backward")
-    timed, max_err = {}, 0.0
+    log("[bwd] backward (csrc/msda_bwd.cu: staged and general) against "
+        "ms_deform_attn_torch_backward")
+    timed, max_err = {}, {"staged": 0.0, "general": 0.0}
     bwd = msda_cuda.ms_deform_attn_backward_cuda
     for name, shape, (lo, hi), dtype, is_timed in cases:
         shp = dict(shape)
@@ -258,30 +355,44 @@ def backward_kernel_phase():
         value, loc, attn = msda_inputs(gen, **shp, shapes=shapes, lo=lo, hi=hi, dtype=dtype)
         grad = torch.randn(shp["B"], shp["Lq"], shp["M"] * shp["D"], generator=gen,
                            device="cuda").to(dtype)
-        ours = bwd(value, shapes, loc, attn, grad)
+        plan = msda_cuda.staged_plan(shapes, shp["D"], dtype, backward=True)
         ref = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
-        torch.cuda.synchronize()
-        errs = []
-        for gname, o, r in zip(("dvalue", "dloc", "dattn"), ours, ref):
-            err = float((o.float() - r.float()).abs().max())
-            rel = err / max(float(r.float().abs().max()), 1e-30)
-            ok = bool(torch.isfinite(o.float()).all()) and o.dtype == r.dtype and rel <= TOL[dtype]
-            errs.append(f"{gname} {err:.3e} (rel {rel:.2e})")
-            if not ok:
-                raise AssertionError(f"MSDA backward kernel disagrees with its plain version "
-                                     f"({name}, {gname}: rel {rel:.3e})")
-            if dtype == torch.float32:
-                max_err = max(max_err, err)
-        log(f"[bwd] {name}: max_abs_err " + ", ".join(errs) + f"; tol {TOL[dtype]:.0e} ok")
+        for kind in kernels_of(plan):
+            ours = bwd(value, shapes, loc, attn, grad, kernel=kind)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, o, r in zip(("dvalue", "dloc", "dattn"), ours, ref):
+                err = float((o.float() - r.float()).abs().max())
+                rel = err / max(float(r.float().abs().max()), 1e-30)
+                ok = (bool(torch.isfinite(o.float()).all()) and o.dtype == r.dtype
+                      and rel <= TOL[dtype])
+                errs.append(f"{gname} {err:.3e} (rel {rel:.2e})")
+                if not ok:
+                    raise AssertionError(f"MSDA {kind} backward kernel disagrees with its plain "
+                                         f"version ({name}, {gname}: rel {rel:.3e})")
+                if dtype == torch.float32:
+                    max_err[kind] = max(max_err[kind], err)
+            log(f"[bwd] {name} {kind}: max_abs_err " + ", ".join(errs)
+                + f"; tol {TOL[dtype]:.0e} ok"
+                + (f" (plan: levels {plan.groups}, {plan.smem} B of shared memory)"
+                   if kind == "staged" else ""))
+        if plan is None and name.startswith(("encoder", "decoder")):
+            raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
-        ms = median_ms(lambda: bwd(value, shapes, loc, attn, grad))
+        bound, bound_by = msda_bwd_bound_ms(value, shapes, loc, attn, grad)
+        timed[name] = {}
+        for kind in ("general", "staged", "staged", "general"):  # in turns, on one card
+            ms = median_ms(lambda: bwd(value, shapes, loc, attn, grad, kernel=kind))
+            timed[name].setdefault(kind, []).append(ms)
         plain = median_ms(lambda: ms_deform_attn_torch_backward(value, shapes, loc, attn, grad),
                           iters=5)
-        bound, bound_by = msda_bwd_bound_ms(value, shapes, loc, attn, grad)
-        timed[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=bound_by)
-        log(f"[bwd] {name}: kernel {ms:.4f} ms (median), plain {plain:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by})")
+        for kind in ("staged", "general"):
+            dev = device_ms(lambda: bwd(value, shapes, loc, attn, grad, kernel=kind))
+            timed[name][kind] = dict(ms=min(timed[name][kind]), device_ms=dev, plain_ms=plain,
+                                     bound_ms=bound, bound_by=bound_by)
+        log(f"[bwd] {name}: {timing_line(timed[name])}, plain {plain:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by})")
         if dtype == torch.float32:
             leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
             out = grid_sample_msda(leaves[0], shapes, leaves[1], leaves[2])
@@ -374,6 +485,42 @@ def fac_kernel_phase():
     return timed, max_err
 
 
+def general_path_phase():
+    """The gather op's general path: `ms_deform_attn` with a gradient on
+    shapes whose slab exceeds shared memory (one 64x64 float32 level, a
+    stride-8 map of a 512x512 image) runs the general kernels; forward and
+    gradients held against the plain versions. Counts from 0; returns the
+    launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = ((64, 64),)
+    value, loc, attn = msda_inputs(gen, B=2, Lq=300, M=8, D=32, P=4, shapes=shapes, lo=0.0,
+                                   hi=1.0, dtype=torch.float32)
+    grad = torch.randn(2, 300, 8 * 32, generator=gen, device="cuda")
+    if msda_cuda.staged_plan(shapes, 32, torch.float32) is not None:
+        raise AssertionError("the general path's case must exceed shared memory")
+    leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
+    reset_counts()
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    out.backward(grad)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected({"msda_fwd": 1, "msda_bwd": 1, "msda_fwd_general": 1, "msda_bwd_general": 1})
+    log(f"[general] 64x64 fp32 level through ms_deform_attn and its backward: launches "
+        f"{json.dumps({n: c for n, c in counts.items() if c})}")
+    if counts != want:
+        raise AssertionError(f"general path: launches {counts}, expected {want}")
+    ref = ms_deform_attn_torch(value, shapes, loc, attn)
+    refs = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    err = float((out.detach() - ref).abs().max())
+    rels = [float((t.grad - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for t, r in zip(leaves, refs)]
+    log(f"[general] forward max_abs_err {err:.3e} (must be 0); dvalue, dloc, dattn "
+        f"{', '.join(f'{r:.2e}' for r in rels)} of max (tol {TOL[torch.float32]:.0e})")
+    if err != 0.0 or max(rels) > TOL[torch.float32]:
+        raise AssertionError("general path disagrees with the plain versions")
+    return counts
+
+
 def research_phase():
     """Phase 3d: the research entry points, the slice's own path. With every
     count at 0, the ablation bench's timing mode runs every variant in bf16
@@ -398,7 +545,7 @@ def research_phase():
     made["probe_lane_slice"] = lane["calls"]
     made["probe_gather"] = sum(r["calls"] for r in gathers)
     counts = read_counts()
-    want = {name: made.get(name, 0) for name in KERNELS}
+    want = expected(staged(made))
     log(f"[ablation] launches of the research path: {json.dumps(counts)}")
     if counts != want:
         raise AssertionError(f"research path: launches {counts}, expected {want}")
@@ -408,8 +555,8 @@ def research_phase():
         rows, calls = bench_msda_ablation.check(list(bench_msda_ablation.VARIANTS), dtype,
                                                 "cuda", log=tagged(f"--check {tag}"))
         delta = {n: c - before[n] for n, c in read_counts().items()}
-        made_check = bench_msda_ablation.card_launches(calls)
-        if delta != {n: made_check.get(n, 0) for n in KERNELS}:
+        made_check = staged(bench_msda_ablation.card_launches(calls))
+        if delta != expected(made_check):
             raise AssertionError(f"--check {tag}: launches {delta}, made {dict(made_check)}")
         if tag == "fp32":
             for r in rows:
@@ -583,8 +730,15 @@ def fac_formulation():
             os.environ["UVHAND_MSDA_FAC"] = old
 
 
-SERVE = {"msda_fwd": MSDA_PER_FORWARD}
-TRAIN = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}
+def staged(per_op):
+    """Launches by kernel of calls by op (`per_op`, by op name) where every
+    gather op runs its staged kernel, as at arctic_sf's and the research
+    scripts' shapes."""
+    return {**per_op, **{f"{op}_staged": n for op, n in per_op.items() if op in VARIANTS}}
+
+
+SERVE = staged({"msda_fwd": MSDA_PER_FORWARD})
+TRAIN = staged({"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD})
 SERVE_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD}
 TRAIN_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD, "msda_fac_bwd": MSDA_PER_FORWARD}
 
@@ -760,7 +914,8 @@ def profile_phase(model, world, batch):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     log(f"[profile] one step: wall {wall:.3f} ms, device busy {device_ms:.3f} ms "
-        f"({100 * device_ms / wall:.1f}%), {n_kernels} device kernels and copies")
+        f"({100 * device_ms / wall:.1f}%), {n_kernels} device kernels and copies; MSDA device "
+        f"ms (calls): {msda_device_ms(kernels)}")
     log(events.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=60))
 
 
@@ -890,7 +1045,8 @@ def train_profile_phase(model, world, batch):
     log(f"[train-profile] device time outside the stages' threads (autograd's device "
         f"thread, input copies): {device_ms - attributed:.3f} ms")
     log(f"[train-profile] one step: wall {wall:.3f} ms, device busy {device_ms:.3f} ms "
-        f"({100 * device_ms / wall:.1f}%), {n_kernels} device kernels and copies")
+        f"({100 * device_ms / wall:.1f}%), {n_kernels} device kernels and copies; MSDA device "
+        f"ms (calls): {msda_device_ms(kernels)}")
     log(events.table(sort_by="self_cuda_time_total", row_limit=25, max_name_column_width=60))
 
 
@@ -911,16 +1067,21 @@ def profile_line(label, fn):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[profile] {label}: wall {wall:.3f} ms, device busy {device_ms:.3f} ms "
+        f"({100 * device_ms / wall:.1f}%), {sum(e.count for e in kernels)} device kernels and "
+        f"copies; MSDA device ms (calls): {msda_device_ms(kernels)}")
+
+
+def msda_device_ms(kernels):
+    """Each MSDA kernel's device ms and calls among the profiler's device
+    events `kernels`, for a log line."""
     msda = {}
     for e in kernels:
         name = next((n for n in KERNELS if f"{n}_kernel" in e.key), None)
         if name:
             ms, calls = msda.get(name, (0.0, 0))
             msda[name] = (ms + e.self_device_time_total / 1e3, calls + e.count)
-    log(f"[profile] {label}: wall {wall:.3f} ms, device busy {device_ms:.3f} ms "
-        f"({100 * device_ms / wall:.1f}%), {sum(e.count for e in kernels)} device kernels and "
-        f"copies; MSDA device ms (calls): "
-        + ", ".join(f"{n} {ms:.3f} ({c})" for n, (ms, c) in sorted(msda.items())))
+    return ", ".join(f"{n} {ms:.3f} ({c})" for n, (ms, c) in sorted(msda.items()))
 
 
 # ------------------------------------------------------------ main
@@ -948,6 +1109,8 @@ def main() -> int:
     msda_cuda.library()
     log(f"[build] {', '.join(src.name for src in msda_cuda.SOURCES)} built (one nvcc each, "
         f"together) and loaded in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(msda_cuda.ptxas_report()):
+        log(f"[build] {line}")
 
     # 3. kernels against their plain versions
     timed, max_err = kernel_phase()
@@ -958,6 +1121,9 @@ def main() -> int:
     t0 = time.perf_counter()
     research_numbers = research_phase()
     log(f"[ablation] phase 3d took {time.perf_counter() - t0:.2f} s of wall clock")
+
+    # 3e. the gather op's general path (shapes beyond shared memory)
+    general = general_path_phase()
 
     # 4. main path
     model, world = build_world("cuda")
@@ -1007,19 +1173,23 @@ def main() -> int:
     serve_fac_fp32 = fac_fp32_phase(
         fp32_out, torch.as_tensor(batches[0]["images"], device="cuda"))
 
-    def per_call(t, dtype):
+    def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
-        row = {key: 6 * t[enc][key] + 6 * t[dec][key] for key in ("ms", "plain_ms", "bound_ms")}
+        if kind:
+            t = {k: t[k][kind] for k in (enc, dec)}
+        row = {key: 6 * t[enc][key] + 6 * t[dec][key]
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms") if key in t[enc]}
         row["bound_by"] = "bytes" if {t[enc]["bound_by"], t[dec]["bound_by"]} == {"bytes"} \
             else "operations"
         return row
 
     log("[kernel] ms, plain_ms and bound_ms are per forward or backward of the model (6 encoder "
-        "+ 6 decoder calls): float32 for msda_fwd / msda_bwd, bf16 for the factorized kernels "
-        "(their path here); launches are the fp32 serving path's (msda_fwd), the fp32 training "
-        "path's (msda_bwd) and the FAC bf16 paths' (msda_fac_*); launches_by_path gives every "
-        "path's count")
+        "+ 6 decoder calls): float32 for the gather kernels (bf16 under *_bf16), bf16 for the "
+        "factorized kernels (their path here); launches are the fp32 serving path's "
+        "(msda_fwd_staged), the fp32 training path's (msda_bwd_staged), phase 3e's general "
+        "path's (msda_*_general: arctic_sf's shapes launch none of them) and the FAC bf16 "
+        "paths' (msda_fac_*); launches_by_path gives every path's count")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -1033,18 +1203,24 @@ def main() -> int:
                 "serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 "serve_bf16_fac": serve_fac[name], "train_bf16_fac": train_fac[name],
                 "serve_fp32_fac": serve_fac_fp32[name],
-                "research": research_numbers["launches"][name]}
+                "research": research_numbers["launches"][name], "general": general[name]}
+
+    def gather_row(op, kind, timed_, errs, launches, replaces):
+        bf16 = per_call(timed_, "bf16", kind)
+        return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
+                "replaces": replaces, "launches": launches, "launches_by_path": by_path(
+                    f"{op}_{kind}"), "dtype": "float32", "max_abs_err": errs[kind],
+                **per_call(timed_, "fp32", kind), "library_ms": None, "ms_bf16": bf16["ms"],
+                "device_ms_bf16": bf16["device_ms"], "plain_ms_bf16": bf16["plain_ms"],
+                "bound_ms_bf16": bf16["bound_ms"]}
 
     src = "uvhand_tpu_torch/ops/csrc/"
+    k1, k23 = "uvhand_tpu/ops/msda_pallas.py:207", "uvhand_tpu/ops/msda_pallas.py:233, :320"
     log(json.dumps({"kernels": [
-        {"name": "msda_fwd", "route": "cuda", "source": src + "msda_fwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:207", "launches": serve_fp32["msda_fwd"],
-         "launches_by_path": by_path("msda_fwd"), "dtype": "float32",
-         "max_abs_err": max_err, **per_call(timed, "fp32"), "library_ms": None},
-        {"name": "msda_bwd", "route": "cuda", "source": src + "msda_bwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:233, :320", "launches": train_fp32["msda_bwd"],
-         "launches_by_path": by_path("msda_bwd"), "dtype": "float32",
-         "max_abs_err": bmax_err, **per_call(btimed, "fp32"), "library_ms": None},
+        gather_row("msda_fwd", "staged", timed, max_err, serve_fp32["msda_fwd_staged"], k1),
+        gather_row("msda_fwd", "general", timed, max_err, general["msda_fwd_general"], k1),
+        gather_row("msda_bwd", "staged", btimed, bmax_err, train_fp32["msda_bwd_staged"], k23),
+        gather_row("msda_bwd", "general", btimed, bmax_err, general["msda_bwd_general"], k23),
         {"name": "msda_fac_fwd", "route": "cuda", "source": src + "msda_fac_fwd.cu",
          "replaces": "uvhand_tpu/ops/msda_pallas.py:388", "launches": serve_fac["msda_fac_fwd"],
          "launches_by_path": by_path("msda_fac_fwd"), "dtype": "bfloat16",

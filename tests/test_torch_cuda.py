@@ -1,6 +1,7 @@
-"""The CUDA MSDA kernels -- the gather form (`msda_fwd.cu`, `msda_bwd.cu`)
-and the factorized form (`msda_fac_fwd.cu`, `msda_fac_bwd.cu`) -- against
-their plain versions, on the card.
+"""The CUDA MSDA kernels -- the gather form (`msda_fwd.cu`, `msda_bwd.cu`,
+each a staged and a general kernel) and the factorized form
+(`msda_fac_fwd.cu`, `msda_fac_bwd.cu`) -- against their plain versions, on
+the card.
 
 The kernels have no CPU mode, so these tests are marked `cuda` and skip where
 no card is present. On a machine with one (which need not have JAX):
@@ -12,7 +13,10 @@ built without fused multiply-add and matches bit for bit in practice) and
 2e-2 in bfloat16. Backward 1e-5 relative to each gradient's max in float32
 (dvalue is summed by atomics in no fixed order) and 2e-2 in bfloat16. The
 two formulations against each other on the same inputs: the same tolerances
-(in bfloat16 they round at different places).
+(in bfloat16 they round at different places). The staged gather kernels
+against the general ones: the forward and the backward's dloc and dattn
+bit-identical (both repeat the plain version's order), dvalue within the
+backward's tolerance.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -114,6 +118,107 @@ def test_backward_kernel_matches_plain(cuda, case, dtype, form):
         assert torch.isfinite(o.float()).all(), name
         err = (o.float() - r.float()).abs().max().item()
         assert err <= TOL[dtype] * max(r.float().abs().max().item(), 1e-12), (name, err)
+
+
+STAGED_CASES = ["encoder", "decoder", "out_of_range", "side_over_128", "side_of_one",
+                 "integer_exact"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", STAGED_CASES)
+def test_staged_kernels_match_general_and_plain(cuda, case, dtype):
+    value, shapes, loc, attn, gen = make_inputs(case, dtype, cuda)
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    assert msda_cuda.staged_plan(shapes, d, dtype) is not None
+    assert msda_cuda.staged_plan(shapes, d, dtype, backward=True) is not None
+    fwd, bwd = msda_cuda.ms_deform_attn_cuda, msda_cuda.ms_deform_attn_backward_cuda
+    out = fwd(value, shapes, loc, attn, kernel="staged")
+    general = fwd(value, shapes, loc, attn, kernel="general")
+    grads = bwd(value, shapes, loc, attn, grad, kernel="staged")
+    general_grads = bwd(value, shapes, loc, attn, grad, kernel="general")
+    torch.cuda.synchronize()
+    assert torch.equal(out, general)
+    if dtype == torch.float32:
+        assert torch.equal(out, ms_deform_attn_torch(value, shapes, loc, attn))
+    ref = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    for name, o, g, r in zip(("dvalue", "dloc", "dattn"), grads, general_grads, ref):
+        assert_matches(name, o, r, TOL[dtype])
+        assert_matches(name, o, g, TOL[dtype] if name == "dvalue" else 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kind", [("encoder", "staged"), ("odd_d", "general"),
+                                       ("integer_exact", "staged")])
+def test_each_kernel_counts_its_launches(cuda, case, kind):
+    value, shapes, loc, attn, gen = make_inputs(case, torch.float32, cuda)
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda)
+    counts = {"fwd": msda_cuda.ms_deform_attn_cuda, "bwd": msda_cuda.ms_deform_attn_backward_cuda,
+              "ablate": msda_cuda.ms_deform_attn_ablate_backward_cuda,
+              "fwd_staged": msda_cuda.FWD_STAGED, "fwd_general": msda_cuda.FWD_GENERAL,
+              "bwd_staged": msda_cuda.BWD_STAGED, "bwd_general": msda_cuda.BWD_GENERAL,
+              "ablate_staged": msda_cuda.ABLATE_STAGED,
+              "ablate_general": msda_cuda.ABLATE_GENERAL}
+    before = {n: c.launches for n, c in counts.items()}
+    msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn)
+    msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad)
+    msda_cuda.ms_deform_attn_ablate_backward_cuda(value, shapes, loc, attn, grad)
+    torch.cuda.synchronize()
+    delta = {n: c.launches - before[n] for n, c in counts.items()}
+    other = "general" if kind == "staged" else "staged"
+    assert delta == {"fwd": 1, "bwd": 1, "ablate": 1, f"fwd_{kind}": 1, f"bwd_{kind}": 1,
+                     f"ablate_{kind}": 1, f"fwd_{other}": 0, f"bwd_{other}": 0,
+                     f"ablate_{other}": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,backward", [(((8, 227),), False), (((8, 227),), True)])
+def test_staged_kernels_at_the_shared_memory_limit(cuda, shapes, backward):
+    """A slab of exactly SMEM_LIMIT bytes launches staged; one row more does
+    not have a plan, and asking for the staged kernel then raises."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S = shapes[0][0] * shapes[0][1]
+    value = torch.randn(1, S, 2, 32, generator=gen, device=cuda)
+    loc = torch.rand(1, 50, 2, 1, 4, 2, generator=gen, device=cuda) * 1.2 - 0.1
+    attn = torch.rand(1, 50, 2, 1, 4, generator=gen, device=cuda)
+    grad = torch.randn(1, 50, 64, generator=gen, device=cuda)
+    plan = msda_cuda.staged_plan(shapes, 32, torch.float32, backward=backward)
+    assert plan.smem == msda_cuda.SMEM_LIMIT
+    if backward:
+        got = msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad,
+                                                     kernel="staged")
+        for name, g, r in zip(("dvalue", "dloc", "dattn"), got,
+                              ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)):
+            assert_matches(name, g, r, TOL[torch.float32])
+    else:
+        got = msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn, kernel="staged")
+        assert torch.equal(got, ms_deform_attn_torch(value, shapes, loc, attn))
+    wider = ((shapes[0][0], shapes[0][1] + 1),)
+    assert msda_cuda.staged_plan(wider, 32, torch.float32, backward=backward) is None
+    S = wider[0][0] * wider[0][1]
+    value = torch.randn(1, S, 2, 32, generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="no staged plan"):
+        if backward:
+            msda_cuda.ms_deform_attn_backward_cuda(value, wider, loc, attn, grad, kernel="staged")
+        else:
+            msda_cuda.ms_deform_attn_cuda(value, wider, loc, attn, kernel="staged")
+
+
+@pytest.mark.cuda
+def test_staged_kernels_refuse_a_misaligned_value(cuda):
+    shapes = ((4, 4),)
+    value = torch.randn(16 * 2 * 8 + 1, device=cuda)[1:].view(1, 16, 2, 8)
+    loc = torch.rand(1, 5, 2, 1, 2, 2, device=cuda)
+    attn = torch.rand(1, 5, 2, 1, 2, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn,
+                                               torch.randn(1, 5, 16, device=cuda))
+    general = msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn, kernel="general")
+    assert torch.equal(general, ms_deform_attn_torch(value, shapes, loc, attn))
 
 
 @pytest.mark.cuda

@@ -2,10 +2,13 @@
 // msda_fac_fwd.cu, msda_fac_bwd.cu): the level plan passed by value, type
 // conversions, the bf16 rounding of the factorized kernels, the warp
 // reduction whose order the plain PyTorch versions repeat (`_warp_sum` in
-// ops/msda.py), and the host-side checks and grid size of a launch.
+// ops/msda.py), the host-side checks and grid size of a launch, and the
+// shared-memory staging of the staged gather kernels.
 //
-// Every kernel runs one warp per (batch, query, head) row, lanes over the D
-// channels of a head (chunks of 32 for D > 32), kWarpsPerBlock warps a block.
+// The general kernels run one warp per (batch, query, head) row, lanes over
+// the D channels of a head (chunks of 32 for D > 32), kWarpsPerBlock warps a
+// block. The staged kernels (msda_fwd.cu, msda_bwd.cu) run one block per
+// (batch, head) value slab held in shared memory; see their notes.
 
 #pragma once
 
@@ -71,6 +74,85 @@ inline int prepare(const int* hw, const int* level_start, int L, int D, int P, i
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   *blocks = (unsigned)n;
   return 0;
+}
+
+// Copies `rows` rows of `row_bytes` bytes (a multiple of 16) from global
+// memory, `src_stride` bytes apart, into shared memory back to back, by
+// 16-byte cp.async from every thread of the block, then waits for them and
+// syncs the block. src and dst must be 16-byte aligned.
+__device__ __forceinline__ void stage_rows(void* dst, const void* src, int rows, int row_bytes,
+                                           long long src_stride) {
+  const int chunks = row_bytes >> 4;
+  const int total = rows * chunks;
+  const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / chunks;
+    const int c = i - r * chunks;
+    const char* from = (const char*)src + r * src_stride + c * 16;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + (unsigned)i * 16u),
+                 "l"(from));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+// The staged kernels' lanes: in a group of 8 lanes, lane j holds channels
+// j, j+8, ..., j+8(kT-1) of a row of D = 8 kT channels -- the channels that
+// the 32-lane butterfly of `warp_sum` adds first, so a dot keeps its order.
+// After staging, each row is interleaved in place so that lane j's kT
+// channels are adjacent (channel j + 8t at position j kT + t) and one
+// vector load gathers them. Syncs the block.
+template <typename T, int kT>
+__device__ __forceinline__ void interleave_rows(T* slab, int rows) {
+  constexpr int D = 8 * kT;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+    const T x = slab[r * D + (lane < D ? lane : 0)];
+    __syncwarp();
+    if (lane < D) slab[r * D + (lane & 7) * kT + (lane >> 3)] = x;
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// Lane j's kT channels of an interleaved row (`at` = the row's start + j kT),
+// widened to float into out[0..kT), by one vector load.
+template <typename T, int kT>
+__device__ __forceinline__ void load_lane(const T* at, float* out) {
+  struct alignas(sizeof(T) * kT) Vec {
+    T v[kT];
+  };
+  const Vec x = *(const Vec*)at;
+#pragma unroll
+  for (int t = 0; t < kT; ++t) out[t] = to_float(x.v[t]);
+}
+
+// dst[t] += x[t] for t < kT in global memory as reductions that return
+// nothing (red.global.add, REDG: the warp does not wait for old values; an
+// atomicAdd whose value is unused is not always compiled to one): one
+// 16-byte vector reduction for kT = 4 (dst 16-byte aligned), else scalars.
+template <int kT>
+__device__ __forceinline__ void red_add(float* dst, const float (&x)[kT]) {
+  if constexpr (kT == 4) {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(
+                     __cvta_generic_to_global(dst)),
+                 "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+                 : "memory");
+  } else {
+#pragma unroll
+    for (int t = 0; t < kT; ++t)
+      asm volatile("red.global.add.f32 [%0], %1;" ::"l"(__cvta_generic_to_global(dst + t)),
+                   "f"(x[t])
+                   : "memory");
+  }
+}
+
+// Allows `kernel` `smem` bytes of dynamic shared memory (needed above
+// 48 KB). Returns 0 or the cudaError_t of the refusal.
+template <typename Kernel>
+inline int allow_smem(Kernel kernel, int smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace msda

@@ -4,6 +4,10 @@
     (`uvhand_tpu/ops/msda_pallas.py:207`);
   - `csrc/msda_bwd.cu` replaces both TPU backward kernels, `_bwd_kernel_sep`
     (`:233`) and `_bwd_kernel` (`:320`);
+    each of the two holds a staged kernel, which keeps the (batch, head)
+    value slab in shared memory (the backward: one level of it), and a
+    general kernel that gathers from global memory; `staged_plan` picks
+    one from the shapes before the launch;
   - `csrc/msda_fac_fwd.cu` replaces the factorized forward `_fwd_kernel_fac`
     (`:388`), and `csrc/msda_fac_bwd.cu` its backward `_bwd_kernel_fac`
     (`:429`).
@@ -26,7 +30,12 @@ ctypes. Nothing is built or imported when this module is imported, so the
 CPU tests can import it on a machine without `nvcc`.
 
 Each wrapper's `.launches` counts its kernel's launches (a plain int), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels; the gather
+forward's, backward's and ablation's wrappers count every launch, and
+`FWD_STAGED`, `FWD_GENERAL`, `BWD_STAGED`, `BWD_GENERAL`, `ABLATE_STAGED`,
+`ABLATE_GENERAL` count them by kernel. The compiler's report of each
+kernel's registers, shared memory and spills (`-Xptxas -v`) is kept beside
+the library (`ptxas_report()`).
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,7 +58,54 @@ SOURCES = tuple(_CSRC / f"{name}.cu" for name in
 HEADERS = (_CSRC / "msda_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+#: the dynamic shared memory one block may opt into on an H100 (sm_90)
+SMEM_LIMIT = 232_448
+
+
+class StagedPlan(NamedTuple):
+    """How a staged kernel runs one call: the levels each block stages
+    (one group: every level, for the forward; one level a group, for the
+    backward) and the dynamic shared memory of a block in bytes."""
+    groups: Tuple[Tuple[int, ...], ...]
+    smem: int
+
+
+def staged_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int, dtype: torch.dtype,
+                backward: bool = False) -> Optional[StagedPlan]:
+    """The staged kernel's plan for these shapes, or None where the general
+    kernel runs: the staged kernels take float32 or bfloat16 rows of D = 8,
+    16 or 32 channels (8-lane groups, each lane D / 8 channels; rows of
+    whole 16-byte chunks, as cp.async copies 16 bytes), and a block's slab
+    within SMEM_LIMIT. The forward stages the (b, m) value slab of every
+    level (S * D values); the backward one level of it a block, so its
+    blocks all do the same work (Lq * P points each) and its shared memory
+    is the largest level's value rows."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return None
+    size = 4 if dtype == torch.float32 else 2
+    if D not in (8, 16, 32):
+        return None
+    cells = [int(h) * int(w) for h, w in spatial_shapes]
+    if backward:
+        groups = tuple((lvl,) for lvl in range(len(cells)))
+        smem = max(cells) * D * size
+    else:
+        groups = (tuple(range(len(cells))),)
+        smem = sum(cells) * D * size
+    return StagedPlan(groups, smem) if 0 < smem <= SMEM_LIMIT else None
+
+
+class LaunchCount:
+    """A kernel's launch count, `.launches` (a plain int)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+FWD_STAGED, FWD_GENERAL = LaunchCount(), LaunchCount()
+BWD_STAGED, BWD_GENERAL = LaunchCount(), LaunchCount()
+ABLATE_STAGED, ABLATE_GENERAL = LaunchCount(), LaunchCount()
 
 
 def _nvcc() -> str:
@@ -63,10 +119,15 @@ def _nvcc() -> str:
 
 
 def _run(procs):
+    """Wait for each (cmd, process); raise on a failure; return what the
+    processes wrote to stderr."""
+    logs = []
     for cmd, proc in procs:
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        logs.append(err)
+    return "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,8 +143,10 @@ def library() -> ctypes.CDLL:
         objs = [so.with_name(f"{src.stem}.{so.stem}.{pid}.o") for src in SOURCES]
         compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                         for src, obj in zip(SOURCES, objs)]
-        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True)) for cmd in compile_cmds])
+        report = _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True))
+                       for cmd in compile_cmds])
+        so.with_suffix(".ptxas.txt").write_text(report)
         tmp = so.with_suffix(f".{pid}.tmp")
         link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
                 *map(str, objs)]
@@ -97,15 +160,21 @@ def library() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.msda_fwd.argtypes = [vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_fwd.restype = ci
+    lib.msda_fwd_staged.argtypes = [vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                                    ci, vp]
+    lib.msda_fwd_staged.restype = ci
     lib.msda_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ip, ip,
                              ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_bwd.restype = ci
+    lib.msda_bwd_staged.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
+                                    ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.msda_bwd_staged.restype = ci
     lib.msda_fac_fwd.argtypes = lib.msda_fwd.argtypes
     lib.msda_fac_fwd.restype = ci
     lib.msda_fac_bwd.argtypes = lib.msda_bwd.argtypes
     lib.msda_fac_bwd.restype = ci
     lib.msda_ablate_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
-                                    ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+                                    ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_ablate_bwd.restype = ci
     lib.msda_onlyg.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_onlyg.restype = ci
@@ -118,7 +187,15 @@ def library() -> ctypes.CDLL:
     lib.probe_gather.restype = ci
     lib.msda_error_string.argtypes = [ci]
     lib.msda_error_string.restype = ctypes.c_char_p
+    lib.ptxas_report = so.with_suffix(".ptxas.txt")
     return lib
+
+
+def ptxas_report() -> str:
+    """What `-Xptxas -v` said of every kernel when the library was built
+    (registers, shared memory, spills), or "" if no report was kept."""
+    path = library().ptxas_report
+    return path.read_text() if path.exists() else ""
 
 
 def _check(value, spatial_shapes, loc, attn, grad_out=None):
@@ -181,35 +258,75 @@ def _raise_on(lib, err, what, invalid=""):
                            f"{lib.msda_error_string(err).decode()} ({err}){why}")
 
 
-def _launch_forward(entry, what, value, spatial_shapes, loc, attn):
+def _pick(kernel, plan):
+    """The plan to launch with under `kernel` ('auto': the staged kernel
+    where there is a plan; 'staged'; 'general'), None for the general one."""
+    if kernel == "general":
+        return None
+    if kernel == "staged" and plan is None:
+        raise ValueError("these shapes have no staged plan (see staged_plan)")
+    if kernel not in ("auto", "staged"):
+        raise ValueError(f"unknown MSDA kernel {kernel!r}")
+    return plan
+
+
+def _staged_args(value, plan):
+    """The staged entries' extra argument, the block's shared-memory bytes;
+    none for a general entry. The staged kernels copy the value by 16-byte
+    chunks."""
+    if plan is None:
+        return ()
+    if value.data_ptr() % 16:
+        raise ValueError("the staged MSDA kernels copy the value by 16-byte chunks: its data "
+                         "must be 16-byte aligned")
+    return (plan.smem,)
+
+
+def _launch_forward(entry, what, value, spatial_shapes, loc, attn, plan=None):
+    """Launch a forward entry; `plan` (a StagedPlan) for a staged one."""
     _check(value, spatial_shapes, loc, attn)
     B, S, M, D = value.shape
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    staged = _staged_args(value, plan)
     lib = library()
     out = torch.empty(B, Lq, M * D, dtype=value.dtype, device=value.device)
     hw, level_start = _plan(spatial_shapes)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = getattr(lib, entry)(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), hw, level_start,
-        L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16), value.device.index, stream)
+        L, B, S, Lq, M, D, P, *staged, int(value.dtype == torch.bfloat16), value.device.index,
+        stream)
     _raise_on(lib, err, what)
     return out
 
 
-def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out):
+def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, plan=None):
+    """Launch a backward entry; `plan` (a StagedPlan) for a staged one, which
+    writes every dvalue row in the value's type itself. A general one adds
+    into a zeroed float32 dvalue, cast to the value's type afterwards."""
     _check(value, spatial_shapes, loc, attn, grad_out)
     B, S, M, D = value.shape
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    staged = _staged_args(value, plan)
     lib = library()
-    dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+    if staged:
+        # float32 sums: in dvalue itself, or in scratch that the kernel
+        # rounds into a bfloat16 dvalue
+        dvalue = torch.empty(B, S, M, D, dtype=value.dtype, device=value.device)
+        sums = [dvalue if value.dtype == torch.float32
+                else torch.empty_like(dvalue, dtype=torch.float32)]
+    else:
+        dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+        sums = []
     dloc = torch.empty_like(loc)
     dattn = torch.empty_like(attn)
     hw, level_start = _plan(spatial_shapes)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = getattr(lib, entry)(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
-        dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(), hw, level_start,
-        L, B, S, Lq, M, D, P, int(value.dtype == torch.bfloat16), value.device.index, stream)
+        dvalue.data_ptr(), *(t.data_ptr() for t in sums), dloc.data_ptr(), dattn.data_ptr(),
+        hw, level_start, L, B, S, Lq, M, D, P, *staged, int(value.dtype == torch.bfloat16),
+        value.device.index, stream)
     _raise_on(lib, err, what)
     return dvalue.to(value.dtype), dloc, dattn
 
@@ -219,11 +336,22 @@ def ms_deform_attn_cuda(
     spatial_shapes: Sequence[Tuple[int, int]],
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
+    kernel: str = "auto",
 ) -> torch.Tensor:
-    """Launch the forward kernel on PyTorch's current stream. Raises on any
-    input the kernel does not take, and when the launch is refused."""
-    out = _launch_forward("msda_fwd", "forward", value, spatial_shapes, sampling_locations,
-                          attention_weights)
+    """Launch the forward kernel on PyTorch's current stream: the staged one
+    where `staged_plan` has a plan for these shapes, else the general one
+    (`kernel` 'staged' or 'general' picks one, to hold them against each
+    other). Raises on any input the kernel does not take, and when the
+    launch is refused."""
+    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype))
+    if plan is None:
+        out = _launch_forward("msda_fwd", "forward", value, spatial_shapes, sampling_locations,
+                              attention_weights)
+        FWD_GENERAL.launches += 1
+    else:
+        out = _launch_forward("msda_fwd_staged", "staged forward", value, spatial_shapes,
+                              sampling_locations, attention_weights, plan)
+        FWD_STAGED.launches += 1
     ms_deform_attn_cuda.launches += 1
     return out
 
@@ -237,14 +365,24 @@ def ms_deform_attn_backward_cuda(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
     grad_out: torch.Tensor,
+    kernel: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel on PyTorch's current stream ->
-    (dvalue in the value's type, dloc float32, dattn in the attention's
-    type). dvalue is summed in float32 by atomics and cast afterwards.
-    Raises on any input the kernel does not take, and when the launch is
-    refused."""
-    grads = _launch_backward("msda_bwd", "backward", value, spatial_shapes, sampling_locations,
-                             attention_weights, grad_out)
+    """Launch the backward kernel on PyTorch's current stream: the staged one
+    where `staged_plan(..., backward=True)` has a plan, else the general one
+    (`kernel` as for `ms_deform_attn_cuda`) -> (dvalue in the value's type,
+    dloc float32, dattn in the attention's type). dvalue is summed in
+    float32 by atomics and rounded once to the value's type. Raises on any
+    input the kernel does not take, and when the launch is refused."""
+    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype,
+                                     backward=True))
+    if plan is None:
+        grads = _launch_backward("msda_bwd", "backward", value, spatial_shapes,
+                                 sampling_locations, attention_weights, grad_out)
+        BWD_GENERAL.launches += 1
+    else:
+        grads = _launch_backward("msda_bwd_staged", "staged backward", value, spatial_shapes,
+                                 sampling_locations, attention_weights, grad_out, plan)
+        BWD_STAGED.launches += 1
     ms_deform_attn_backward_cuda.launches += 1
     return grads
 
@@ -312,26 +450,33 @@ def ms_deform_attn_ablate_backward_cuda(
     """Launch the ablation of the backward kernel (`msda_ablate_bwd`) ->
     (dvalue (B, S, M, D) float32, dpy, dpx, daw (B, Lq, M, L, P) float32 in
     pixel space). `out` drops one output's work ('full', 'nodpy', 'nodaw',
-    'nodv'); `gate` is 'where' (the production gate) or 'eq'. dvalue is
-    summed by float32 atomics, not deterministic. Raises on any input the
-    kernel does not take, and when the launch is refused."""
+    'nodv'); `gate` is 'where' (the production gate) or 'eq'. The body is
+    the staged backward's where `staged_plan(..., backward=True)` has a
+    plan, else the general one's, as in `ms_deform_attn_backward_cuda`.
+    dvalue is summed by float32 atomics, not deterministic. Raises on any
+    input the kernel does not take, and when the launch is refused."""
     if out not in ABLATE_OUT or gate not in ABLATE_GATE:
         raise ValueError(f"unknown ablation out={out!r} or gate={gate!r}")
     _check(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
     B, S, M, D = value.shape
     loc = sampling_locations
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    plan = staged_plan(spatial_shapes, D, value.dtype, backward=True)
+    smem = _staged_args(value, plan)
     lib = library()
-    dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+    # the staged body writes every dvalue row; the general one adds into zeros
+    dvalue = (torch.empty if smem else torch.zeros)(B, S, M, D, dtype=torch.float32,
+                                                    device=value.device)
     dpy, dpx, daw = _pixel_grads(loc)
     hw, level_start = _plan(spatial_shapes)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = lib.msda_ablate_bwd(
         value.data_ptr(), loc.data_ptr(), attention_weights.data_ptr(), grad_out.data_ptr(),
         dvalue.data_ptr(), dpy.data_ptr(), dpx.data_ptr(), daw.data_ptr(), hw, level_start,
-        L, B, S, Lq, M, D, P, ABLATE_OUT[out], ABLATE_GATE[gate],
+        L, B, S, Lq, M, D, P, ABLATE_OUT[out], ABLATE_GATE[gate], *(smem or (0,)),
         int(value.dtype == torch.bfloat16), value.device.index, stream)
     _raise_on(lib, err, "ablation backward")
+    (ABLATE_STAGED if smem else ABLATE_GENERAL).launches += 1
     ms_deform_attn_ablate_backward_cuda.launches += 1
     return dvalue, dpy, dpx, daw
 
