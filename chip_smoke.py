@@ -25,10 +25,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      bfloat16, a >128 side in both, staged and general as in 3; times them
      like the forward, with the grid_sample composition's autograd backward
      as the yardstick;
-  3c. the factorized kernels (msda_fac_fwd, msda_fac_bwd) against their
-     plain versions on the same kinds of cases plus a side of one: forward,
-     dattn and dloc bit-identical, dvalue within TOL; held against the
-     gather kernels on the same inputs (TOL); timed like 3 and 3b;
+  3c. the factorized kernels (csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu),
+     the staged one wherever the shapes have a staged plan and the general
+     one on every case, against their plain versions on the same kinds of
+     cases plus a side of one and a side of 128: forward, dattn and dloc
+     bit-identical, dvalue within TOL; held against the gather kernels on
+     the same inputs (TOL); timed like 3 and 3b, with the grid_sample
+     composition and its autograd backward as the yardstick;
   3d. the research entry points (`uvhand_tpu_torch/scripts/`), the slice's
      own path, counts from 0: the MSDA ablation bench's timing mode times
      every variant of the TPU bench in bf16 and float32 at its shapes
@@ -43,9 +46,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      the TPU check shapes in float32 and bf16 (launches checked, not
      counted). Every model path below must launch none of the research
      kernels; at these shapes every gather op runs its staged kernel;
-  3e. the gather op's general path: `ms_deform_attn` and its backward on a
+  3e. each op's general path: `ms_deform_attn` and its backward on a
      64x64 float32 level (beyond shared memory) launch the general
-     kernels once each and agree with the plain versions;
+     kernels once each and agree with the plain versions, in the gather
+     form and under UVHAND_MSDA_FAC=1 (the factorized dattn and dloc bit
+     for bit);
+  3f. inputs the kernels do not take as they are -- a misaligned or
+     transposed value, bf16 locations, strided attention, bf16 attention
+     with a float32 value -- through `ms_deform_attn` and its backward in
+     both forms and both types: each equals the plain version on the same
+     inputs and runs the staged kernels;
   4. serving path: `UVHandDETR` at full width (ResNet-50, 224x224, d=256,
      6+6 layers, 300 queries, 4 levels x 4 points, two-stage, box refine,
      float32) with seeded random weights serves three batches of 16
@@ -74,9 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      of 8, and a kernel-against-plain train pass as 7;
   12. UVHAND_MSDA_FAC=1: the bf16 serving and training paths again, through
      the factorized kernels (msda_fac_fwd +12 per batch, +12 per step with
-     msda_fac_bwd; the gather kernels +0), serving outputs with the kernels
-     equal to those with the plain versions, and one float32 batch equal to
-     phase 5's gather-kernel run (1e-4);
+     msda_fac_bwd, all of them the staged kernels'; the general factorized
+     and the gather kernels +0), serving outputs with the kernels equal to
+     those with the plain versions, and one float32 batch (12 staged
+     msda_fac_fwd) equal to phase 5's gather-kernel run (1e-4);
   with profile lines (device busy share, kernels, MSDA device ms) for one
   bf16 serving batch and one bf16 train step under each formulation.
 
@@ -133,15 +144,17 @@ RESEARCH = {
     "probe_lane_slice": msda_cuda.lane_slice_cuda,
     "probe_gather": msda_cuda.take_along_axis_cuda,
 }
-#: the gather ops whose wrappers pick a staged or a general kernel, and the
-#: counts of each kernel's launches
+#: the ops whose wrappers pick a staged or a general kernel, and the counts
+#: of each kernel's launches
 VARIANTS = {
     "msda_fwd": {"staged": msda_cuda.FWD_STAGED, "general": msda_cuda.FWD_GENERAL},
     "msda_bwd": {"staged": msda_cuda.BWD_STAGED, "general": msda_cuda.BWD_GENERAL},
+    "msda_fac_fwd": {"staged": msda_cuda.FAC_FWD_STAGED, "general": msda_cuda.FAC_FWD_GENERAL},
+    "msda_fac_bwd": {"staged": msda_cuda.FAC_BWD_STAGED, "general": msda_cuda.FAC_BWD_GENERAL},
     "msda_ablate_bwd": {"staged": msda_cuda.ABLATE_STAGED, "general": msda_cuda.ABLATE_GENERAL},
 }
 #: every kernel wrapper by its kernel's name; each counts its launches (the
-#: gather ops' wrappers count both their kernels, `<op>_staged` and
+#: VARIANTS ops' wrappers count both their kernels, `<op>_staged` and
 #: `<op>_general` each one)
 KERNELS = {
     "msda_fwd": msda_cuda.ms_deform_attn_cuda,
@@ -223,14 +236,20 @@ def ptxas_lines(report):
 
 def timing_line(times):
     """The staged and general kernels' times of one case for a log line."""
-    return ", ".join(f"{kind} {t['ms']:.4f} ms (device {t['device_ms']:.4f})"
+    return ", ".join(f"{kind} {t['ms']:.4f} ms (device {ms_or_not(t['device_ms'])})"
                      for kind, t in times.items()) + (
         " (ms: the lower of two CUDA-event medians, in turns general, staged, staged, general; "
         "device: the profiler's device time a call)")
 
 
+def ms_or_not(ms):
+    """A device time for a log line, or "not measured" where the profiler
+    saw no device work."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def kernels_of(plan):
-    """The gather kernels to hold against the plain version on a case: the
+    """The kernels of an op to hold against the plain version on a case: the
     staged one where the shapes have a plan, and the general one always."""
     return ("staged", "general") if plan is not None else ("general",)
 
@@ -403,14 +422,19 @@ def backward_kernel_phase():
 
 
 def fac_kernel_phase():
-    """The factorized kernels against their plain versions (forward, dattn
-    and dloc bit-identical, dvalue within TOL) and against the gather
-    kernels on the same inputs (TOL: two formulations of one function)."""
+    """The factorized kernels, the staged one (where the shapes have a plan)
+    and the general one on every case, against their plain versions
+    (forward, dattn and dloc bit-identical, dvalue within TOL) and against
+    the gather kernels on the same inputs (TOL: two formulations of one
+    function); each timed at the four model shapes in turns in the same run.
+    Returns ({"fwd"|"bwd": {case: {kernel: numbers}}}, {"fwd"|"bwd":
+    {kernel: largest float32 error}})."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     enc = dict(B=BATCH, Lq=sum(h * w for h, w in LEVELS), M=8, D=32, P=4, shapes=LEVELS)
     dec = dict(enc, Lq=300)
     exact = dict(B=2, Lq=300, M=8, D=32, P=4, shapes=((16, 32), (8, 16), (4, 8), (2, 4)))
     one = dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((6, 5), (2, 1), (1, 1)))
+    side = dict(B=2, Lq=200, M=8, D=32, P=4, shapes=((128, 4), (64, 2)))
     cases = [
         ("encoder fp32", enc, (0.0, 1.0), torch.float32, True),
         ("decoder fp32", dec, (-1.0, 1.0), torch.float32, True),
@@ -424,58 +448,73 @@ def fac_kernel_phase():
          (-0.2, 1.2), torch.bfloat16, False),
         ("side of one fp32", one, (0.0, 1.0), torch.float32, False),
         ("side of one bf16", one, (0.0, 1.0), torch.bfloat16, False),
+        ("side of 128 fp32", side, (-0.1, 1.1), torch.float32, False),
         ("integer-exact fp32", exact, (None, None), torch.float32, False),
         ("integer-exact bf16", exact, (None, None), torch.bfloat16, False),
     ]
-    log("[fac] factorized kernels (csrc/msda_fac_fwd.cu, msda_fac_bwd.cu) against "
-        "ms_deform_attn_fac_torch(_backward), and against the gather kernels")
+    log("[fac] factorized kernels (csrc/msda_fac_fwd.cu, msda_fac_bwd.cu: staged and general) "
+        "against ms_deform_attn_fac_torch(_backward), and against the gather kernels")
     fwd, bwd = msda_cuda.ms_deform_attn_fac_cuda, msda_cuda.ms_deform_attn_fac_backward_cuda
     timed = {"fwd": {}, "bwd": {}}
-    max_err = {"fwd": 0.0, "bwd": 0.0}
+    max_err = {key: {"staged": 0.0, "general": 0.0} for key in timed}
     for name, shape, (lo, hi), dtype, is_timed in cases:
         shp = dict(shape)
         shapes = shp.pop("shapes")
         value, loc, attn = msda_inputs(gen, **shp, shapes=shapes, lo=lo, hi=hi, dtype=dtype)
         grad = torch.randn(shp["B"], shp["Lq"], shp["M"] * shp["D"], generator=gen,
                            device="cuda").to(dtype)
-        outs = (fwd(value, shapes, loc, attn), *bwd(value, shapes, loc, attn, grad))
+        plan = msda_cuda.staged_plan(shapes, shp["D"], dtype)
         refs = (ms_deform_attn_fac_torch(value, shapes, loc, attn),
                 *ms_deform_attn_fac_torch_backward(value, shapes, loc, attn, grad))
         gather = (msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn),
                   *msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad))
-        torch.cuda.synchronize()
-        report = []
-        for gname, o, r, g in zip(("out", "dvalue", "dloc", "dattn"), outs, refs, gather):
-            err = float((o.float() - r.float()).abs().max())
-            scale = max(float(r.float().abs().max()), 1e-30)
-            vs_gather = float((o.float() - g.float()).abs().max()) / scale
-            exact_wanted = gname != "dvalue"
-            ok = (bool(torch.isfinite(o.float()).all()) and o.dtype == r.dtype
-                  and (err == 0.0 if exact_wanted else err / scale <= TOL[dtype])
-                  and vs_gather <= TOL[dtype])
-            report.append(f"{gname} {err:.3e} (vs gather {vs_gather:.2e})")
-            if not ok:
-                raise AssertionError(
-                    f"factorized kernel disagrees ({name}, {gname}): max_abs_err {err:.3e} "
-                    f"{'(must be 0)' if exact_wanted else f'(rel tol {TOL[dtype]:.0e})'}, "
-                    f"vs gather {vs_gather:.3e} of max (tol {TOL[dtype]:.0e})")
-            if dtype == torch.float32:
-                key = "fwd" if gname == "out" else "bwd"
-                max_err[key] = max(max_err[key], err)
-        log(f"[fac] {name}: max_abs_err vs plain " + ", ".join(report) + " ok")
+        for kind in kernels_of(plan):
+            outs = (fwd(value, shapes, loc, attn, kernel=kind),
+                    *bwd(value, shapes, loc, attn, grad, kernel=kind))
+            torch.cuda.synchronize()
+            report = []
+            for gname, o, r, g in zip(("out", "dvalue", "dloc", "dattn"), outs, refs, gather):
+                err = float((o.float() - r.float()).abs().max())
+                scale = max(float(r.float().abs().max()), 1e-30)
+                vs_gather = float((o.float() - g.float()).abs().max()) / scale
+                exact_wanted = gname != "dvalue"
+                ok = (bool(torch.isfinite(o.float()).all()) and o.dtype == r.dtype
+                      and (err == 0.0 if exact_wanted else err / scale <= TOL[dtype])
+                      and vs_gather <= TOL[dtype])
+                report.append(f"{gname} {err:.3e} (vs gather {vs_gather:.2e})")
+                if not ok:
+                    raise AssertionError(
+                        f"factorized {kind} kernel disagrees ({name}, {gname}): max_abs_err "
+                        f"{err:.3e} "
+                        f"{'(must be 0)' if exact_wanted else f'(rel tol {TOL[dtype]:.0e})'}, "
+                        f"vs gather {vs_gather:.3e} of max (tol {TOL[dtype]:.0e})")
+                if dtype == torch.float32:
+                    key = "fwd" if gname == "out" else "bwd"
+                    max_err[key][kind] = max(max_err[key][kind], err)
+            log(f"[fac] {name} {kind}: max_abs_err vs plain " + ", ".join(report) + " ok"
+                + (f" (plan: {plan.smem} B of shared memory forward, "
+                   f"{msda_cuda.staged_plan(shapes, shp['D'], dtype, backward=True).smem} B "
+                   f"backward)" if kind == "staged" else ""))
+        if plan is None and name.startswith(("encoder", "decoder")):
+            raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
-        for key, kernel, plain, bound in (
-                ("fwd", lambda: fwd(value, shapes, loc, attn),
+        for key, call, plain, bound in (
+                ("fwd", lambda kind: fwd(value, shapes, loc, attn, kernel=kind),
                  lambda: ms_deform_attn_fac_torch(value, shapes, loc, attn),
                  msda_bound_ms(value, shapes, loc, attn)),
-                ("bwd", lambda: bwd(value, shapes, loc, attn, grad),
+                ("bwd", lambda kind: bwd(value, shapes, loc, attn, grad, kernel=kind),
                  lambda: ms_deform_attn_fac_torch_backward(value, shapes, loc, attn, grad),
                  msda_bwd_bound_ms(value, shapes, loc, attn, grad))):
-            ms, plain_ms = median_ms(kernel), median_ms(plain, iters=5)
-            timed[key][name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
-            log(f"[fac] {name} {key}: kernel {ms:.4f} ms (median), plain {plain_ms:.4f} ms, "
-                f"bound {bound[0]:.4f} ms ({bound[1]})")
+            t = timed[key][name] = {}
+            for kind in ("general", "staged", "staged", "general"):  # in turns, on one card
+                t.setdefault(kind, []).append(median_ms(lambda: call(kind)))
+            plain_ms = median_ms(plain, iters=5)
+            for kind in ("staged", "general"):
+                t[kind] = dict(ms=min(t[kind]), device_ms=device_ms(lambda: call(kind)),
+                               plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1])
+            log(f"[fac] {name} {key}: {timing_line(t)}, plain {plain_ms:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]})")
         gs = median_ms(lambda: grid_sample_msda(value, shapes, loc, attn))
         leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
         out = grid_sample_msda(leaves[0], shapes, leaves[1], leaves[2])
@@ -485,12 +524,15 @@ def fac_kernel_phase():
     return timed, max_err
 
 
-def general_path_phase():
-    """The gather op's general path: `ms_deform_attn` with a gradient on
-    shapes whose slab exceeds shared memory (one 64x64 float32 level, a
-    stride-8 map of a 512x512 image) runs the general kernels; forward and
-    gradients held against the plain versions. Counts from 0; returns the
-    launches."""
+def general_path_phase(fac=False):
+    """An op's general path: `ms_deform_attn` with a gradient on shapes
+    whose slab exceeds shared memory (one 64x64 float32 level, a stride-8
+    map of a 512x512 image; under UVHAND_MSDA_FAC=1 with `fac`, which
+    `fac_ok` takes: side 64, WD 2048) runs the general kernels; forward and
+    gradients held against the plain versions (the factorized dattn and
+    dloc bit for bit). Counts from 0; returns the launches."""
+    op = "msda_fac" if fac else "msda"
+    tag = "[fac-general]" if fac else "[general]"
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     shapes = ((64, 64),)
     value, loc, attn = msda_inputs(gen, B=2, Lq=300, M=8, D=32, P=4, shapes=shapes, lo=0.0,
@@ -499,26 +541,98 @@ def general_path_phase():
     if msda_cuda.staged_plan(shapes, 32, torch.float32) is not None:
         raise AssertionError("the general path's case must exceed shared memory")
     leaves = [t.clone().requires_grad_() for t in (value, loc, attn)]
-    reset_counts()
-    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
-    out.backward(grad)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    want = expected({"msda_fwd": 1, "msda_bwd": 1, "msda_fwd_general": 1, "msda_bwd_general": 1})
-    log(f"[general] 64x64 fp32 level through ms_deform_attn and its backward: launches "
+    with fac_formulation() if fac else contextlib.nullcontext():
+        reset_counts()
+        out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+        out.backward(grad)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    want = expected({f"{op}_fwd": 1, f"{op}_bwd": 1, f"{op}_fwd_general": 1,
+                     f"{op}_bwd_general": 1})
+    log(f"{tag} 64x64 fp32 level through ms_deform_attn and its backward: launches "
         f"{json.dumps({n: c for n, c in counts.items() if c})}")
     if counts != want:
-        raise AssertionError(f"general path: launches {counts}, expected {want}")
-    ref = ms_deform_attn_torch(value, shapes, loc, attn)
-    refs = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+        raise AssertionError(f"{tag} general path: launches {counts}, expected {want}")
+    plain_fwd, plain_bwd = ((ms_deform_attn_fac_torch, ms_deform_attn_fac_torch_backward) if fac
+                            else (ms_deform_attn_torch, ms_deform_attn_torch_backward))
+    ref = plain_fwd(value, shapes, loc, attn)
+    refs = plain_bwd(value, shapes, loc, attn, grad)
     err = float((out.detach() - ref).abs().max())
-    rels = [float((t.grad - r).abs().max()) / max(float(r.abs().max()), 1e-30)
-            for t, r in zip(leaves, refs)]
-    log(f"[general] forward max_abs_err {err:.3e} (must be 0); dvalue, dloc, dattn "
-        f"{', '.join(f'{r:.2e}' for r in rels)} of max (tol {TOL[torch.float32]:.0e})")
-    if err != 0.0 or max(rels) > TOL[torch.float32]:
-        raise AssertionError("general path disagrees with the plain versions")
+    abs_errs = [float((t.grad - r).abs().max()) for t, r in zip(leaves, refs)]
+    rels = [e / max(float(r.abs().max()), 1e-30) for e, r in zip(abs_errs, refs)]
+    log(f"{tag} forward max_abs_err {err:.3e} (must be 0); dvalue, dloc, dattn "
+        f"{', '.join(f'{r:.2e}' for r in rels)} of max (tol {TOL[torch.float32]:.0e}"
+        f"{'; dloc and dattn must be 0' if fac else ''})")
+    if err != 0.0 or max(rels) > TOL[torch.float32] or (fac and max(abs_errs[1:]) != 0.0):
+        raise AssertionError(f"{tag} general path disagrees with the plain versions")
     return counts
+
+
+#: inputs the kernels do not take as they are, which `ms_deform_attn` brings
+#: into their form (`msda.kernel_inputs`) before the launch
+UNPREPARED = {
+    "misaligned value": lambda v, loc, a: (
+        torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)[1:].view(v.shape).copy_(v),
+        loc, a),
+    "transposed value": lambda v, loc, a: (v.transpose(2, 3).contiguous().transpose(2, 3),
+                                           loc, a),
+    "bf16 locations": lambda v, loc, a: (v, loc.bfloat16(), a),
+    "strided attention": lambda v, loc, a: (v, loc, torch.cat([a, a], -1)[..., :a.shape[-1]]),
+    "fp32 value, bf16 attention": lambda v, loc, a: (v.float(), loc, a.bfloat16()),
+}
+
+
+def unprepared_inputs_phase():
+    """The op on inputs the kernels do not take as they are (a misaligned or
+    transposed value, bf16 locations, strided attention, attention of
+    another type): forward and autograd backward of `ms_deform_attn` in both
+    forms on the decoder's shapes (B=2), held against the plain versions on
+    the same inputs -- forward, dloc and dattn bit for bit in float32 and in
+    the factorized form, else within TOL -- and each through the staged
+    kernels (the preparation aligns the value). Returns the launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    total = {name: 0 for name in KERNELS}
+    for fac in (False, True):
+        form = "fac" if fac else "gather"
+        plain_fwd, plain_bwd = ((ms_deform_attn_fac_torch, ms_deform_attn_fac_torch_backward)
+                                if fac else (ms_deform_attn_torch, ms_deform_attn_torch_backward))
+        op = "msda_fac" if fac else "msda"
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, make in UNPREPARED.items():
+                value, loc, attn = make(*msda_inputs(gen, B=2, Lq=300, M=8, D=32, P=4,
+                                                     shapes=LEVELS, lo=-1.0, hi=1.0,
+                                                     dtype=dtype))
+                grad = torch.randn(2, 300, 256, generator=gen, device="cuda").to(value.dtype)
+                leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+                with fac_formulation() if fac else contextlib.nullcontext():
+                    reset_counts()
+                    out = ms_deform_attn(leaves[0], LEVELS, leaves[1], leaves[2])
+                    out.backward(grad)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                exact = fac or value.dtype == torch.float32
+                errs = []
+                for gname, o, r in zip(("out", "dvalue", "dloc", "dattn"),
+                                       (out.detach(), *(t.grad for t in leaves)),
+                                       (plain_fwd(value, LEVELS, loc, attn),
+                                        *plain_bwd(value, LEVELS, loc, attn, grad))):
+                    err = float((o.float() - r.float()).abs().max())
+                    rel = err / max(float(r.float().abs().max()), 1e-30)
+                    errs.append(f"{gname} {err:.2e}")
+                    tol = 0.0 if exact and gname != "dvalue" else TOL[value.dtype]
+                    if o.dtype != r.dtype or o.shape != r.shape or not rel <= tol:
+                        raise AssertionError(f"[unprepared] {form} {name} ({dtype}): {gname} "
+                                             f"max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol})")
+                want = expected({f"{op}_fwd": 1, f"{op}_bwd": 1, f"{op}_fwd_staged": 1,
+                                 f"{op}_bwd_staged": 1})
+                if counts != want:
+                    raise AssertionError(f"[unprepared] {form} {name}: launches {counts}")
+                for k, c in counts.items():
+                    total[k] += c
+                log(f"[unprepared] {form} {str(value.dtype)[6:]} value, {name}: max_abs_err vs "
+                    f"plain {', '.join(errs)} ({'exact' if exact else 'dvalue'} within tol); "
+                    f"staged kernels ok")
+    return total
 
 
 def research_phase():
@@ -732,15 +846,15 @@ def fac_formulation():
 
 def staged(per_op):
     """Launches by kernel of calls by op (`per_op`, by op name) where every
-    gather op runs its staged kernel, as at arctic_sf's and the research
-    scripts' shapes."""
+    op of VARIANTS runs its staged kernel, as at arctic_sf's and the
+    research scripts' shapes."""
     return {**per_op, **{f"{op}_staged": n for op, n in per_op.items() if op in VARIANTS}}
 
 
 SERVE = staged({"msda_fwd": MSDA_PER_FORWARD})
 TRAIN = staged({"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD})
-SERVE_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD}
-TRAIN_FAC = {"msda_fac_fwd": MSDA_PER_FORWARD, "msda_fac_bwd": MSDA_PER_FORWARD}
+SERVE_FAC = staged({"msda_fac_fwd": MSDA_PER_FORWARD})
+TRAIN_FAC = staged({"msda_fac_fwd": MSDA_PER_FORWARD, "msda_fac_bwd": MSDA_PER_FORWARD})
 
 
 def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE):
@@ -1122,8 +1236,12 @@ def main() -> int:
     research_numbers = research_phase()
     log(f"[ablation] phase 3d took {time.perf_counter() - t0:.2f} s of wall clock")
 
-    # 3e. the gather op's general path (shapes beyond shared memory)
+    # 3e. each op's general path (shapes beyond shared memory)
     general = general_path_phase()
+    fac_general = general_path_phase(fac=True)
+
+    # 3f. inputs the kernels do not take as they are, through the op
+    unprepared = unprepared_inputs_phase()
 
     # 4. main path
     model, world = build_world("cuda")
@@ -1178,7 +1296,8 @@ def main() -> int:
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
         if kind:
             t = {k: t[k][kind] for k in (enc, dec)}
-        row = {key: 6 * t[enc][key] + 6 * t[dec][key]
+        row = {key: None if None in (t[enc][key], t[dec][key])  # device time not measured
+               else 6 * t[enc][key] + 6 * t[dec][key]
                for key in ("ms", "device_ms", "plain_ms", "bound_ms") if key in t[enc]}
         row["bound_by"] = "bytes" if {t[enc]["bound_by"], t[dec]["bound_by"]} == {"bytes"} \
             else "operations"
@@ -1186,10 +1305,10 @@ def main() -> int:
 
     log("[kernel] ms, plain_ms and bound_ms are per forward or backward of the model (6 encoder "
         "+ 6 decoder calls): float32 for the gather kernels (bf16 under *_bf16), bf16 for the "
-        "factorized kernels (their path here); launches are the fp32 serving path's "
-        "(msda_fwd_staged), the fp32 training path's (msda_bwd_staged), phase 3e's general "
-        "path's (msda_*_general: arctic_sf's shapes launch none of them) and the FAC bf16 "
-        "paths' (msda_fac_*); launches_by_path gives every path's count")
+        "factorized kernels (their path here; fp32 under *_fp32); launches are the fp32 serving "
+        "path's (msda_fwd_staged), the fp32 training path's (msda_bwd_staged), the FAC bf16 "
+        "paths' (msda_fac_*_staged) and phase 3e's general paths' (msda_*_general: arctic_sf's "
+        "shapes launch none of them); launches_by_path gives every path's count")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -1203,7 +1322,8 @@ def main() -> int:
                 "serve_bf16": serve_bf16[name], "train_bf16": train_bf16[name],
                 "serve_bf16_fac": serve_fac[name], "train_bf16_fac": train_fac[name],
                 "serve_fp32_fac": serve_fac_fp32[name],
-                "research": research_numbers["launches"][name], "general": general[name]}
+                "research": research_numbers["launches"][name], "general": general[name],
+                "fac_general": fac_general[name], "unprepared": unprepared[name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
@@ -1214,21 +1334,27 @@ def main() -> int:
                 "device_ms_bf16": bf16["device_ms"], "plain_ms_bf16": bf16["plain_ms"],
                 "bound_ms_bf16": bf16["bound_ms"]}
 
+    def fac_row(op, kind, key, launches, replaces):
+        fp32 = per_call(ftimed[key], "fp32", kind)
+        return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
+                "replaces": replaces, "launches": launches, "launches_by_path": by_path(
+                    f"{op}_{kind}"), "dtype": "bfloat16", "max_abs_err": fmax_err[key][kind],
+                **per_call(ftimed[key], "bf16", kind), "library_ms": None, "ms_fp32": fp32["ms"],
+                "device_ms_fp32": fp32["device_ms"], "plain_ms_fp32": fp32["plain_ms"],
+                "bound_ms_fp32": fp32["bound_ms"]}
+
     src = "uvhand_tpu_torch/ops/csrc/"
     k1, k23 = "uvhand_tpu/ops/msda_pallas.py:207", "uvhand_tpu/ops/msda_pallas.py:233, :320"
+    k4, k5 = "uvhand_tpu/ops/msda_pallas.py:388", "uvhand_tpu/ops/msda_pallas.py:429"
     log(json.dumps({"kernels": [
         gather_row("msda_fwd", "staged", timed, max_err, serve_fp32["msda_fwd_staged"], k1),
         gather_row("msda_fwd", "general", timed, max_err, general["msda_fwd_general"], k1),
         gather_row("msda_bwd", "staged", btimed, bmax_err, train_fp32["msda_bwd_staged"], k23),
         gather_row("msda_bwd", "general", btimed, bmax_err, general["msda_bwd_general"], k23),
-        {"name": "msda_fac_fwd", "route": "cuda", "source": src + "msda_fac_fwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:388", "launches": serve_fac["msda_fac_fwd"],
-         "launches_by_path": by_path("msda_fac_fwd"), "dtype": "bfloat16",
-         "max_abs_err": fmax_err["fwd"], **per_call(ftimed["fwd"], "bf16"), "library_ms": None},
-        {"name": "msda_fac_bwd", "route": "cuda", "source": src + "msda_fac_bwd.cu",
-         "replaces": "uvhand_tpu/ops/msda_pallas.py:429", "launches": train_fac["msda_fac_bwd"],
-         "launches_by_path": by_path("msda_fac_bwd"), "dtype": "bfloat16",
-         "max_abs_err": fmax_err["bwd"], **per_call(ftimed["bwd"], "bf16"), "library_ms": None},
+        fac_row("msda_fac_fwd", "staged", "fwd", serve_fac["msda_fac_fwd_staged"], k4),
+        fac_row("msda_fac_fwd", "general", "fwd", fac_general["msda_fac_fwd_general"], k4),
+        fac_row("msda_fac_bwd", "staged", "bwd", train_fac["msda_fac_bwd_staged"], k5),
+        fac_row("msda_fac_bwd", "general", "bwd", fac_general["msda_fac_bwd_general"], k5),
         *research_rows(research_numbers, by_path),
     ]}))
     log(card)

@@ -1,7 +1,6 @@
-"""The CUDA MSDA kernels -- the gather form (`msda_fwd.cu`, `msda_bwd.cu`,
-each a staged and a general kernel) and the factorized form
-(`msda_fac_fwd.cu`, `msda_fac_bwd.cu`) -- against their plain versions, on
-the card.
+"""The CUDA MSDA kernels -- the gather form (`msda_fwd.cu`, `msda_bwd.cu`)
+and the factorized form (`msda_fac_fwd.cu`, `msda_fac_bwd.cu`), each a
+staged and a general kernel -- against their plain versions, on the card.
 
 The kernels have no CPU mode, so these tests are marked `cuda` and skip where
 no card is present. On a machine with one (which need not have JAX):
@@ -16,7 +15,12 @@ two formulations against each other on the same inputs: the same tolerances
 (in bfloat16 they round at different places). The staged gather kernels
 against the general ones: the forward and the backward's dloc and dattn
 bit-identical (both repeat the plain version's order), dvalue within the
-backward's tolerance.
+backward's tolerance. Each factorized kernel, staged and general: the
+forward and the backward's dloc and dattn bit-identical to the plain
+versions, dvalue within the backward's tolerance. `ms_deform_attn` on inputs
+the kernels do not take as they are (a misaligned or transposed value,
+bfloat16 locations, attention of another type) equals the plain version on
+the same inputs.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -33,6 +37,8 @@ from uvhand_tpu_torch.ops import msda_ablation, msda_cuda, probes
 from uvhand_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
+
+from test_torch_msda_inputs import UNPREPARED  # inputs the kernels do not take as they are
 
 CASES = {
     # name: (b, lq, m, d, p, shapes, loc range)
@@ -148,6 +154,111 @@ def test_staged_kernels_match_general_and_plain(cuda, case, dtype):
         assert_matches(name, o, g, TOL[dtype] if name == "dvalue" else 0.0)
 
 
+#: (case, dtype, kind) of each factorized kernel: the staged one where the
+#: shapes have a plan (both directions share it), the general one on every case
+FAC_KINDS = [(case, dtype, kind) for case in sorted(CASES)
+             for dtype in (torch.float32, torch.bfloat16)
+             for kind in ("staged", "general")
+             if kind == "general" or msda_cuda.staged_plan(CASES[case][5], CASES[case][3], dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,kind", FAC_KINDS, ids=str)
+def test_fac_kernels_match_plain_exactly(cuda, case, dtype, kind):
+    value, shapes, loc, attn, gen = make_inputs(case, dtype, cuda)
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    fwd, bwd = msda_cuda.ms_deform_attn_fac_cuda, msda_cuda.ms_deform_attn_fac_backward_cuda
+    counts = {"staged": (msda_cuda.FAC_FWD_STAGED, msda_cuda.FAC_BWD_STAGED),
+              "general": (msda_cuda.FAC_FWD_GENERAL, msda_cuda.FAC_BWD_GENERAL)}[kind]
+    before = [c.launches for c in counts]
+    out = fwd(value, shapes, loc, attn, kernel=kind)
+    grads = bwd(value, shapes, loc, attn, grad, kernel=kind)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1]
+    assert_matches("forward", out, ms_deform_attn_fac_torch(value, shapes, loc, attn), 0.0)
+    ref = ms_deform_attn_fac_torch_backward(value, shapes, loc, attn, grad)
+    for name, o, r in zip(("dvalue", "dloc", "dattn"), grads, ref):
+        assert_matches(name, o, r, TOL[dtype] if name == "dvalue" else 0.0)
+
+
+def exact_tol(form, dtype):
+    """The tolerance of a forward, dloc or dattn against the plain version:
+    none where the kernels are known to repeat its order bit for bit (the
+    factorized kernels; the gather kernels in float32), else TOL."""
+    return 0.0 if form == "fac" or dtype == torch.float32 else TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("unprepared", sorted(UNPREPARED))
+def test_op_takes_inputs_the_kernels_do_not_take_as_they_are(cuda, unprepared, dtype, form,
+                                                             monkeypatch):
+    monkeypatch.setenv("UVHAND_MSDA_FAC", "1" if form == "fac" else "0")
+    value, shapes, loc, attn, _ = make_inputs("decoder", dtype, cuda)
+    value, loc, attn = UNPREPARED[unprepared](value, loc, attn)
+    if unprepared == "offset_value":
+        assert value.data_ptr() % 16
+    else:
+        assert value.data_ptr() % 16 == 0
+    plain = FORMS[form][1]
+    got = ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    want = plain(value, shapes, loc, attn)
+    assert_matches("forward", got, want, exact_tol(form, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("unprepared", sorted(UNPREPARED))
+def test_op_backward_takes_inputs_the_kernels_do_not_take_as_they_are(cuda, unprepared, dtype,
+                                                                      form, monkeypatch):
+    monkeypatch.setenv("UVHAND_MSDA_FAC", "1" if form == "fac" else "0")
+    value, shapes, loc, attn, gen = make_inputs("decoder", dtype, cuda)
+    b, lq, m, d = CASES["decoder"][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    value, loc, attn = UNPREPARED[unprepared](value, loc, attn)
+    leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+    ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]).backward(grad)
+    torch.cuda.synchronize()
+    ref = FORMS[form][3](value, shapes, loc, attn, grad)
+    for name, leaf, r in zip(("dvalue", "dloc", "dattn"), leaves, ref):
+        assert leaf.grad.shape == leaf.shape and leaf.grad.dtype == leaf.dtype, name
+        assert_matches(name, leaf.grad, r, TOL[dtype] if name == "dvalue" else
+                       exact_tol(form, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("vdt,adt", [(torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)], ids=str)
+def test_op_takes_attention_of_another_type(cuda, vdt, adt, form, monkeypatch):
+    """Attention of another type than the value's: taken as the CPU path
+    takes it, but for a bfloat16 value in the factorized form, which rounds
+    at the value's type (a TypeError)."""
+    monkeypatch.setenv("UVHAND_MSDA_FAC", "1" if form == "fac" else "0")
+    value, shapes, loc, attn, gen = make_inputs("decoder", vdt, cuda)
+    attn = attn.to(adt)
+    b, lq, m, d = CASES["decoder"][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(vdt)
+    leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+    if form == "fac" and vdt == torch.bfloat16:
+        with pytest.raises(TypeError, match="factorized"):
+            ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+        return
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert_matches("forward", out.detach(), FORMS[form][1](value, shapes, loc, attn),
+                   exact_tol(form, vdt))
+    ref = FORMS[form][3](value, shapes, loc, attn, grad)
+    for name, leaf, r in zip(("dvalue", "dloc", "dattn"), leaves, ref):
+        assert_matches(name, leaf.grad, r, TOL[vdt] if name == "dvalue" else
+                       exact_tol(form, vdt))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,kind", [("encoder", "staged"), ("odd_d", "general"),
                                        ("integer_exact", "staged")])
@@ -157,20 +268,28 @@ def test_each_kernel_counts_its_launches(cuda, case, kind):
     grad = torch.randn(b, lq, m * d, generator=gen, device=cuda)
     counts = {"fwd": msda_cuda.ms_deform_attn_cuda, "bwd": msda_cuda.ms_deform_attn_backward_cuda,
               "ablate": msda_cuda.ms_deform_attn_ablate_backward_cuda,
+              "fac_fwd": msda_cuda.ms_deform_attn_fac_cuda,
+              "fac_bwd": msda_cuda.ms_deform_attn_fac_backward_cuda,
               "fwd_staged": msda_cuda.FWD_STAGED, "fwd_general": msda_cuda.FWD_GENERAL,
               "bwd_staged": msda_cuda.BWD_STAGED, "bwd_general": msda_cuda.BWD_GENERAL,
               "ablate_staged": msda_cuda.ABLATE_STAGED,
-              "ablate_general": msda_cuda.ABLATE_GENERAL}
+              "ablate_general": msda_cuda.ABLATE_GENERAL,
+              "fac_fwd_staged": msda_cuda.FAC_FWD_STAGED,
+              "fac_fwd_general": msda_cuda.FAC_FWD_GENERAL,
+              "fac_bwd_staged": msda_cuda.FAC_BWD_STAGED,
+              "fac_bwd_general": msda_cuda.FAC_BWD_GENERAL}
     before = {n: c.launches for n, c in counts.items()}
     msda_cuda.ms_deform_attn_cuda(value, shapes, loc, attn)
     msda_cuda.ms_deform_attn_backward_cuda(value, shapes, loc, attn, grad)
     msda_cuda.ms_deform_attn_ablate_backward_cuda(value, shapes, loc, attn, grad)
+    msda_cuda.ms_deform_attn_fac_cuda(value, shapes, loc, attn)
+    msda_cuda.ms_deform_attn_fac_backward_cuda(value, shapes, loc, attn, grad)
     torch.cuda.synchronize()
     delta = {n: c.launches - before[n] for n, c in counts.items()}
     other = "general" if kind == "staged" else "staged"
-    assert delta == {"fwd": 1, "bwd": 1, "ablate": 1, f"fwd_{kind}": 1, f"bwd_{kind}": 1,
-                     f"ablate_{kind}": 1, f"fwd_{other}": 0, f"bwd_{other}": 0,
-                     f"ablate_{other}": 0}
+    ops = ("fwd", "bwd", "ablate", "fac_fwd", "fac_bwd")
+    assert delta == {**{op: 1 for op in ops}, **{f"{op}_{kind}": 1 for op in ops},
+                     **{f"{op}_{other}": 0 for op in ops}}
 
 
 @pytest.mark.cuda

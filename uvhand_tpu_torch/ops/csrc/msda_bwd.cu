@@ -253,15 +253,8 @@ msda_bwd_staged_kernel(const T* __restrict__ value, const float* __restrict__ lo
   const int W = plan.w[l];
   const long long MD = (long long)M * D;
   const long long slab = ((long long)b * S + plan.start[l]) * MD + (long long)m * D;
-  // the block owns its level's dvalue rows: zero their float32 sums
-  for (int i = threadIdx.x; i < H * W * (D / 4); i += blockDim.x) {
-    const int r = i / (D / 4);
-    *(float4*)(dsum + slab + r * MD + 4 * (i - r * (D / 4))) =
-        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-  __threadfence();  // the zeros reach L2 before any thread's reductions (after the sync)
-  stage_rows(smem, value + slab, H * W, D * (int)sizeof(T), MD * (long long)sizeof(T));
-  interleave_rows<T, kT>(vs, H * W);
+  // the block owns its level's dvalue rows: their float32 sums start at 0
+  stage_owned_rows<T, kT>(vs, value + slab, dsum + slab, H * W, MD);
 
   const float fH = (float)H;
   const float fW = (float)W;
@@ -377,16 +370,7 @@ msda_bwd_staged_kernel(const T* __restrict__ value, const float* __restrict__ lo
       }
     }
   }
-  if constexpr (!std::is_same_v<TDv, float>) {
-    // the float32 sums, rounded once to dvalue's type
-    __threadfence();
-    __syncthreads();
-    for (int i = threadIdx.x; i < H * W * D; i += blockDim.x) {
-      const int r = i / D;
-      const long long o = slab + r * MD + (i - r * D);
-      store(dvalue + o, __ldcg(dsum + o));
-    }
-  }
+  round_owned_rows<TDv, D>(dvalue + slab, dsum + slab, H * W, MD);
 }
 
 template <typename T, typename TDv, Out kOut, Gate kGate>

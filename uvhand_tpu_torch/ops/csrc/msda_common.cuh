@@ -3,12 +3,13 @@
 // conversions, the bf16 rounding of the factorized kernels, the warp
 // reduction whose order the plain PyTorch versions repeat (`_warp_sum` in
 // ops/msda.py), the host-side checks and grid size of a launch, and the
-// shared-memory staging of the staged gather kernels.
+// shared-memory staging, lane layout and grids of the staged kernels.
 //
 // The general kernels run one warp per (batch, query, head) row, lanes over
 // the D channels of a head (chunks of 32 for D > 32), kWarpsPerBlock warps a
-// block. The staged kernels (msda_fwd.cu, msda_bwd.cu) run one block per
-// (batch, head) value slab held in shared memory; see their notes.
+// block. The staged kernels (both forms) run one block per (batch, head)
+// value slab held in shared memory (the backward: one level of it); see
+// msda_fwd.cu and msda_bwd.cu.
 
 #pragma once
 
@@ -148,11 +149,82 @@ __device__ __forceinline__ void red_add(float* dst, const float (&x)[kT]) {
   }
 }
 
+// The channel sum of one 8-lane group's row (lane j holds the terms of
+// channels j + 8t in x[t], zero for t >= kT) in the 32-lane butterfly's
+// order, first part: its steps 16 and 8, which stay inside the lane. Steps
+// 4, 2, 1 are xor shuffles across the group.
+__device__ __forceinline__ float lane_pairs(const float (&x)[4]) {
+  return (x[0] + x[2]) + (x[1] + x[3]);
+}
+
+// The staged backward kernels' prologue. The block owns `rows` dvalue rows
+// (`dsum`: their float32 sums, MD values apart) and their value rows (`src`,
+// the same stride): it zeroes the sums, then copies the value rows into
+// shared memory (`vs`) and interleaves them. The zeros reach L2 before any
+// thread's reductions. Syncs the block.
+template <typename T, int kT>
+__device__ __forceinline__ void stage_owned_rows(T* vs, const T* src, float* dsum, int rows,
+                                                 long long MD) {
+  constexpr int D = 8 * kT;
+  for (int i = threadIdx.x; i < rows * (D / 4); i += blockDim.x) {
+    const int r = i / (D / 4);
+    *(float4*)(dsum + r * MD + 4 * (i - r * (D / 4))) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __threadfence();
+  stage_rows(vs, src, rows, D * (int)sizeof(T), MD * (long long)sizeof(T));
+  interleave_rows<T, kT>(vs, rows);
+}
+
+// The staged backward kernels' epilogue: where dvalue's type TDv is not
+// float32, the block's float32 sums of its `rows` rows (`dsum`, MD values
+// apart), rounded once into dvalue. Syncs the block first.
+template <typename TDv, int D>
+__device__ __forceinline__ void round_owned_rows(TDv* dvalue, const float* dsum, int rows,
+                                                 long long MD) {
+  if constexpr (!std::is_same_v<TDv, float>) {
+    __threadfence();
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int r = i / D;
+      const long long o = r * MD + (i - r * D);
+      store(dvalue + o, __ldcg(dsum + o));
+    }
+  }
+}
+
 // Allows `kernel` `smem` bytes of dynamic shared memory (needed above
 // 48 KB). Returns 0 or the cudaError_t of the refusal.
 template <typename Kernel>
 inline int allow_smem(Kernel kernel, int smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The staged forward kernels' grid, after allowing `kernel` its `smem`:
+// `pairs` (batch, head) slabs, each cut into chunks of *q_chunk queries.
+// The chunks a pair are the blocks the card holds at once (SMs x blocks per
+// SM of `threads` threads at this slab size, from the occupancy calculator)
+// over the pairs, at least 1 and at most one query per 8-lane group. Sets
+// *q_chunk and *blocks (pairs and Lq must be > 0); returns 0 or a
+// cudaError_t.
+template <typename Kernel>
+inline int staged_fwd_grid(Kernel kernel, int threads, int smem, int device, long long pairs,
+                           int Lq, int* q_chunk, unsigned* blocks) {
+  int err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  int sms = 0, per_sm = 0;
+  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != 0) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != 0) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long chunks = (long long)sms * per_sm / pairs;
+  chunks = min(chunks, (long long)(Lq / (threads / 8)));  // a query per group
+  chunks = max(chunks, 1LL);
+  *q_chunk = (int)((Lq + chunks - 1) / chunks);
+  const long long n = pairs * ((Lq + *q_chunk - 1) / *q_chunk);
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  *blocks = (unsigned)n;
+  return 0;
 }
 
 }  // namespace msda

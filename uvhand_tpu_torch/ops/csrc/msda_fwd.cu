@@ -236,23 +236,12 @@ int launch_fwd_staged(const void* value, const void* loc, const void* attn, void
                       const LevelPlan& plan, int B, int S, int Lq, int M, int P, int smem,
                       int device, cudaStream_t s) {
   const auto kernel = msda_fwd_staged_kernel<T, kT>;
-  int err = allow_smem(kernel, smem);
+  int q_chunk = 0;
+  unsigned blocks = 0;
+  const int err = staged_fwd_grid(kernel, kFwdStagedThreads, smem, device, (long long)B * M, Lq,
+                                  &q_chunk, &blocks);
   if (err != 0) return err;
-  int sms = 0, per_sm = 0;
-  err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != 0) return err;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFwdStagedThreads,
-                                                           smem);
-  if (err != 0) return err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long pairs = (long long)B * M;
-  long long chunks = (long long)sms * per_sm / pairs;
-  chunks = min(chunks, (long long)(Lq / (kFwdStagedThreads / 8)));  // a query per group
-  chunks = max(chunks, 1LL);
-  const int q_chunk = (int)((Lq + chunks - 1) / chunks);
-  const long long blocks = pairs * ((Lq + q_chunk - 1) / q_chunk);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, kFwdStagedThreads, smem, s>>>(
+  kernel<<<blocks, kFwdStagedThreads, smem, s>>>(
       (const T*)value, (const float*)loc, (const T*)attn, (T*)out, plan, S, Lq, M, P, q_chunk);
   return (int)cudaGetLastError();
 }

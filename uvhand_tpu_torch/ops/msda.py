@@ -25,7 +25,11 @@ Two formulations of that function, as in the JAX package's TPU kernels:
 
 `ms_deform_attn(impl="auto")` launches the hand-written CUDA kernels
 (`msda_cuda.py`) for a CUDA tensor and runs the plain versions for a CPU
-tensor; `impl="torch"` runs the plain versions on any device. When a
+tensor; `impl="torch"` runs the plain versions on any device. Before a
+launch `kernel_inputs` brings the caller's tensors into the form the
+kernels take (float32 locations, contiguous tensors of one type, an
+aligned value) without changing the function, so the op takes on the card
+what it takes on the CPU. When a
 gradient is needed the op goes through `MSDeformAttnFunction`, whose
 backward is the backward kernel or its plain version of the formulation
 its forward ran; autograd never differentiates a plain forward itself,
@@ -336,15 +340,47 @@ def ms_deform_attn_fac_torch_backward(
             dattn.to(attention_weights.dtype))
 
 
+def kernel_inputs(value, sampling_locations, attention_weights, fac, grad_out=None):
+    """The op's inputs in the form the CUDA kernels take, for the function
+    the plain versions compute on the caller's tensors -> (value, locations,
+    attention, grad_out or None):
+      - locations in float32, as the plain versions compute them;
+      - value, attention and incoming gradient contiguous and in one type.
+        Attention of another type than a float32 value is made float32, as
+        the plain versions make it. With a bfloat16 value and attention of
+        another type, the gather form computes in float32 anyway, so the
+        value and gradient are widened and the kernels run in float32; the
+        factorized form rounds at the value's type and reads the attention
+        in it, so it refuses that case (a TypeError). A value of another
+        type than float32 or bfloat16 is left for the wrapper to refuse;
+      - the value's data 16-byte aligned (the staged kernels copy it by
+        16-byte chunks): a fresh copy, which the allocator aligns.
+    Tensors already in that form come back as they are. The caller casts
+    the results back to the caller's types."""
+    work = value.dtype
+    if attention_weights.dtype != value.dtype and value.dtype == torch.bfloat16:
+        if fac:
+            raise TypeError(
+                f"the factorized MSDA kernels round at the value's type ({value.dtype}) and "
+                f"read the attention in it: attention of type {attention_weights.dtype} "
+                f"is taken on the CPU only")
+        work = torch.float32
+    value = value.to(work).contiguous()
+    if value.data_ptr() % 16:
+        value = value.clone()
+    if grad_out is not None:
+        grad_out = grad_out.to(work).contiguous()
+    return (value, sampling_locations.to(torch.float32).contiguous(),
+            attention_weights.to(work).contiguous(), grad_out)
+
+
 def _forward(value, spatial_shapes, loc, attn, impl, fac):
-    on_card = impl == "auto" and value.is_cuda
-    if fac:
-        if on_card:
-            return msda_cuda.ms_deform_attn_fac_cuda(value, spatial_shapes, loc, attn)
-        return ms_deform_attn_fac_torch(value, spatial_shapes, loc, attn)
-    if on_card:
-        return msda_cuda.ms_deform_attn_cuda(value, spatial_shapes, loc, attn)
-    return ms_deform_attn_torch(value, spatial_shapes, loc, attn)
+    if impl == "auto" and value.is_cuda:
+        kernel = msda_cuda.ms_deform_attn_fac_cuda if fac else msda_cuda.ms_deform_attn_cuda
+        v, lc, a, _ = kernel_inputs(value, loc, attn, fac)
+        return kernel(v, spatial_shapes, lc, a).to(value.dtype)
+    plain = ms_deform_attn_fac_torch if fac else ms_deform_attn_torch
+    return plain(value, spatial_shapes, loc, attn)
 
 
 class MSDeformAttnFunction(torch.autograd.Function):
@@ -352,7 +388,7 @@ class MSDeformAttnFunction(torch.autograd.Function):
     for CUDA tensors under impl='auto', the plain versions for CPU tensors
     or under impl='torch'. `fac` picks the factorized formulation; the
     forward stores it, so the backward runs the same one whatever the
-    environment says by then."""
+    environment says by then. Gradients come back in each input's type."""
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes, impl, fac):
@@ -367,7 +403,9 @@ class MSDeformAttnFunction(torch.autograd.Function):
         if ctx.impl == "auto" and value.is_cuda:
             kernel = (msda_cuda.ms_deform_attn_fac_backward_cuda if ctx.fac
                       else msda_cuda.ms_deform_attn_backward_cuda)
-            grads = kernel(value, shapes, loc, attn, grad_out.contiguous())
+            v, lc, a, g = kernel_inputs(value, loc, attn, ctx.fac, grad_out)
+            dvalue, dloc, dattn = kernel(v, shapes, lc, a, g)
+            grads = (dvalue.to(value.dtype), dloc.to(loc.dtype), dattn.to(attn.dtype))
         else:
             plain = (ms_deform_attn_fac_torch_backward if ctx.fac
                      else ms_deform_attn_torch_backward)

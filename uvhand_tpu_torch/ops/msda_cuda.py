@@ -4,13 +4,13 @@
     (`uvhand_tpu/ops/msda_pallas.py:207`);
   - `csrc/msda_bwd.cu` replaces both TPU backward kernels, `_bwd_kernel_sep`
     (`:233`) and `_bwd_kernel` (`:320`);
-    each of the two holds a staged kernel, which keeps the (batch, head)
-    value slab in shared memory (the backward: one level of it), and a
-    general kernel that gathers from global memory; `staged_plan` picks
-    one from the shapes before the launch;
   - `csrc/msda_fac_fwd.cu` replaces the factorized forward `_fwd_kernel_fac`
     (`:388`), and `csrc/msda_fac_bwd.cu` its backward `_bwd_kernel_fac`
-    (`:429`).
+    (`:429`);
+    each of the four holds a staged kernel, which keeps the (batch, head)
+    value slab in shared memory (the backwards: one level of it), and a
+    general kernel that gathers from global memory; `staged_plan` picks
+    one from the shapes before the launch, the same plan for both forms.
 
 and the research scripts' TPU kernels (`uvhand_tpu_torch/scripts/`):
   - `csrc/msda_bwd.cu`'s entry `msda_ablate_bwd` and `csrc/msda_onlyg.cu`
@@ -30,9 +30,10 @@ ctypes. Nothing is built or imported when this module is imported, so the
 CPU tests can import it on a machine without `nvcc`.
 
 Each wrapper's `.launches` counts its kernel's launches (a plain int), so a
-run can show that its main path went through the kernels; the gather
-forward's, backward's and ablation's wrappers count every launch, and
-`FWD_STAGED`, `FWD_GENERAL`, `BWD_STAGED`, `BWD_GENERAL`, `ABLATE_STAGED`,
+run can show that its main path went through the kernels; the forwards',
+backwards' and ablation's wrappers count every launch, and `FWD_STAGED`,
+`FWD_GENERAL`, `BWD_STAGED`, `BWD_GENERAL`, `FAC_FWD_STAGED`,
+`FAC_FWD_GENERAL`, `FAC_BWD_STAGED`, `FAC_BWD_GENERAL`, `ABLATE_STAGED`,
 `ABLATE_GENERAL` count them by kernel. The compiler's report of each
 kernel's registers, shared memory and spills (`-Xptxas -v`) is kept beside
 the library (`ptxas_report()`).
@@ -74,7 +75,9 @@ class StagedPlan(NamedTuple):
 def staged_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int, dtype: torch.dtype,
                 backward: bool = False) -> Optional[StagedPlan]:
     """The staged kernel's plan for these shapes, or None where the general
-    kernel runs: the staged kernels take float32 or bfloat16 rows of D = 8,
+    kernel runs; one plan for the gather and the factorized kernels, whose
+    staged kernels share a layout. The staged kernels take float32 or
+    bfloat16 rows of D = 8,
     16 or 32 channels (8-lane groups, each lane D / 8 channels; rows of
     whole 16-byte chunks, as cp.async copies 16 bytes), and a block's slab
     within SMEM_LIMIT. The forward stages the (b, m) value slab of every
@@ -105,6 +108,8 @@ class LaunchCount:
 
 FWD_STAGED, FWD_GENERAL = LaunchCount(), LaunchCount()
 BWD_STAGED, BWD_GENERAL = LaunchCount(), LaunchCount()
+FAC_FWD_STAGED, FAC_FWD_GENERAL = LaunchCount(), LaunchCount()
+FAC_BWD_STAGED, FAC_BWD_GENERAL = LaunchCount(), LaunchCount()
 ABLATE_STAGED, ABLATE_GENERAL = LaunchCount(), LaunchCount()
 
 
@@ -169,10 +174,10 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd_staged.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
                                     ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_bwd_staged.restype = ci
-    lib.msda_fac_fwd.argtypes = lib.msda_fwd.argtypes
-    lib.msda_fac_fwd.restype = ci
-    lib.msda_fac_bwd.argtypes = lib.msda_bwd.argtypes
-    lib.msda_fac_bwd.restype = ci
+    for gather, fac in (("msda_fwd", "msda_fac_fwd"), ("msda_bwd", "msda_fac_bwd")):
+        for suffix in ("", "_staged"):
+            getattr(lib, fac + suffix).argtypes = getattr(lib, gather + suffix).argtypes
+            getattr(lib, fac + suffix).restype = ci
     lib.msda_ablate_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
                                     ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_ablate_bwd.restype = ci
@@ -331,6 +336,21 @@ def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, pl
     return dvalue.to(value.dtype), dloc, dattn
 
 
+def _dispatch(launch, entries, counts, what, value, spatial_shapes, *args, kernel="auto",
+              backward=False):
+    """One launch of an op with a staged and a general kernel: the staged
+    one where `staged_plan` has a plan for these shapes, else the general
+    one (`kernel` 'staged' or 'general' picks one). `entries` and `counts`
+    are (general, staged)."""
+    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype,
+                                     backward=backward))
+    staged = plan is not None
+    out = launch(entries[staged], ("staged " if staged else "") + what, value, spatial_shapes,
+                 *args, plan=plan)
+    counts[staged].launches += 1
+    return out
+
+
 def ms_deform_attn_cuda(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -343,15 +363,9 @@ def ms_deform_attn_cuda(
     (`kernel` 'staged' or 'general' picks one, to hold them against each
     other). Raises on any input the kernel does not take, and when the
     launch is refused."""
-    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype))
-    if plan is None:
-        out = _launch_forward("msda_fwd", "forward", value, spatial_shapes, sampling_locations,
-                              attention_weights)
-        FWD_GENERAL.launches += 1
-    else:
-        out = _launch_forward("msda_fwd_staged", "staged forward", value, spatial_shapes,
-                              sampling_locations, attention_weights, plan)
-        FWD_STAGED.launches += 1
+    out = _dispatch(_launch_forward, ("msda_fwd", "msda_fwd_staged"), (FWD_GENERAL, FWD_STAGED),
+                    "forward", value, spatial_shapes, sampling_locations, attention_weights,
+                    kernel=kernel)
     ms_deform_attn_cuda.launches += 1
     return out
 
@@ -373,16 +387,10 @@ def ms_deform_attn_backward_cuda(
     dloc float32, dattn in the attention's type). dvalue is summed in
     float32 by atomics and rounded once to the value's type. Raises on any
     input the kernel does not take, and when the launch is refused."""
-    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype,
-                                     backward=True))
-    if plan is None:
-        grads = _launch_backward("msda_bwd", "backward", value, spatial_shapes,
-                                 sampling_locations, attention_weights, grad_out)
-        BWD_GENERAL.launches += 1
-    else:
-        grads = _launch_backward("msda_bwd_staged", "staged backward", value, spatial_shapes,
-                                 sampling_locations, attention_weights, grad_out, plan)
-        BWD_STAGED.launches += 1
+    grads = _dispatch(_launch_backward, ("msda_bwd", "msda_bwd_staged"),
+                      (BWD_GENERAL, BWD_STAGED), "backward", value, spatial_shapes,
+                      sampling_locations, attention_weights, grad_out, kernel=kernel,
+                      backward=True)
     ms_deform_attn_backward_cuda.launches += 1
     return grads
 
@@ -395,11 +403,14 @@ def ms_deform_attn_fac_cuda(
     spatial_shapes: Sequence[Tuple[int, int]],
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
+    kernel: str = "auto",
 ) -> torch.Tensor:
     """Launch the factorized forward kernel (`msda_fac_fwd.cu`) on
-    PyTorch's current stream; as `ms_deform_attn_cuda` otherwise."""
-    out = _launch_forward("msda_fac_fwd", "factorized forward", value, spatial_shapes,
-                          sampling_locations, attention_weights)
+    PyTorch's current stream, staged or general as `ms_deform_attn_cuda`
+    chooses; as `ms_deform_attn_cuda` otherwise."""
+    out = _dispatch(_launch_forward, ("msda_fac_fwd", "msda_fac_fwd_staged"),
+                    (FAC_FWD_GENERAL, FAC_FWD_STAGED), "factorized forward", value,
+                    spatial_shapes, sampling_locations, attention_weights, kernel=kernel)
     ms_deform_attn_fac_cuda.launches += 1
     return out
 
@@ -413,12 +424,16 @@ def ms_deform_attn_fac_backward_cuda(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
     grad_out: torch.Tensor,
+    kernel: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the factorized backward kernel (`msda_fac_bwd.cu`) on
-    PyTorch's current stream; as `ms_deform_attn_backward_cuda` otherwise
-    (dvalue summed in float32 by atomics, not deterministic)."""
-    grads = _launch_backward("msda_fac_bwd", "factorized backward", value, spatial_shapes,
-                             sampling_locations, attention_weights, grad_out)
+    PyTorch's current stream, staged or general as
+    `ms_deform_attn_backward_cuda` chooses; as it otherwise (dvalue summed
+    in float32 by atomics, not deterministic)."""
+    grads = _dispatch(_launch_backward, ("msda_fac_bwd", "msda_fac_bwd_staged"),
+                      (FAC_BWD_GENERAL, FAC_BWD_STAGED), "factorized backward", value,
+                      spatial_shapes, sampling_locations, attention_weights, grad_out,
+                      kernel=kernel, backward=True)
     ms_deform_attn_fac_backward_cuda.launches += 1
     return grads
 

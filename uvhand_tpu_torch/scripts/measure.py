@@ -97,18 +97,23 @@ def device_ms(fn, iters=20, warmup=3):
     """The card's busy time for one call of `fn`: the device time of every
     kernel and copy that `iters` calls launch, as torch.profiler (CUPTI)
     records it, over `iters`, after `warmup` calls; None when the profiler
-    saw no device work. Unlike `median_ms` it leaves out the host's work
-    between launches, which paces a call of a few microseconds."""
+    saw no device work in three tries (a profile now and then comes back
+    without the device's records). Unlike `median_ms` it leaves out
+    the host's work between launches, which paces a call of a few
+    microseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return busy_us / 1e3 / iters if busy_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    return None
