@@ -55,7 +55,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      transposed value, bf16 locations, strided attention, bf16 attention
      with a float32 value -- through `ms_deform_attn` and its backward in
      both forms and both types: each equals the plain version on the same
-     inputs and runs the staged kernels;
+     inputs and runs the staged kernels; then a float16 and a float64
+     value and a bfloat16 or float16 value with float32 attention, both
+     forms: each equals the plain version (forward, dloc, dattn bit for bit;
+     dvalue within TOL) through the kernels `TYPED` names (the factorized
+     form's and float64's general kernels);
   4. serving path: `UVHandDETR` at full width (ResNet-50, 224x224, d=256,
      6+6 layers, 300 queries, 4 levels x 4 points, two-stage, box refine,
      float32) with seeded random weights serves three batches of 16
@@ -89,7 +93,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      those with the plain versions, and one float32 batch (12 staged
      msda_fac_fwd) equal to phase 5's gather-kernel run (1e-4);
   with profile lines (device busy share, kernels, MSDA device ms) for one
-  bf16 serving batch and one bf16 train step under each formulation.
+  bf16 serving batch and one bf16 train step under each formulation;
+  13. the port's CLI (`python -m uvhand_tpu_torch.cli.main`, called as
+     `cli.main.main`) at full width on a synthetic ARCTIC root written
+     under build/cli_smoke/ (68 frames, a contact window for MDev): the
+     loader alone (frames/s; its CUDA prefetch equal to the host batches
+     bit for bit), an fp32 epoch of 4 steps with its eval, `--eval
+     --resume out/0` with the default metrics (the sequence pass
+     included), and a `--bf16` epoch of 2 steps under UVHAND_MSDA_FAC=1;
+     12 staged forward launches a batch, 12 + 12 a step, no other kernel;
+     the resumed eval equal to the in-process one; every score finite.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -112,6 +125,9 @@ import torch
 import torch.nn.functional as F
 
 from uvhand_tpu_torch import engine
+from uvhand_tpu_torch.cli import main as cli
+from uvhand_tpu_torch.data import arctic
+from uvhand_tpu_torch.data.loader import DataLoader, device_prefetch
 from uvhand_tpu_torch.geometry import mano, objects
 from uvhand_tpu_torch.geometry.rotations import axis_angle_to_matrix, rotate_about_axis
 from uvhand_tpu_torch.models.detr import UVHandDETR
@@ -134,7 +150,7 @@ MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
 KEYS = ("pred_logits", "pred_hand_key", "pred_obj_key")  # the outputs held end to end
 #: the research entry points' kernels (phase 3d), which no model path launches
 RESEARCH = {
@@ -582,14 +598,32 @@ UNPREPARED = {
 }
 
 
+#: value and attention types that not every kernel takes: (value type,
+#: attention type, the kernel kind each form runs). The gather form widens
+#: a float16 value, or a bfloat16 one with float32 attention, to float32 (the
+#: staged kernels); float64, and every such case of the factorized form, runs
+#: the general kernels
+TYPED = {
+    "fp16 value": (torch.float16, torch.float16, {"gather": "staged", "fac": "general"}),
+    "fp64 value": (torch.float64, torch.float64, {"gather": "general", "fac": "general"}),
+    "bf16 value, fp32 attention": (torch.bfloat16, torch.float32,
+                                   {"gather": "staged", "fac": "general"}),
+    "fp16 value, fp32 attention": (torch.float16, torch.float32,
+                                   {"gather": "staged", "fac": "general"}),
+}
+
+
 def unprepared_inputs_phase():
     """The op on inputs the kernels do not take as they are (a misaligned or
     transposed value, bf16 locations, strided attention, attention of
-    another type): forward and autograd backward of `ms_deform_attn` in both
-    forms on the decoder's shapes (B=2), held against the plain versions on
-    the same inputs -- forward, dloc and dattn bit for bit in float32 and in
-    the factorized form, else within TOL -- and each through the staged
-    kernels (the preparation aligns the value). Returns the launches."""
+    another type) and on the value types of TYPED (float16, float64, a
+    bfloat16 or float16 value with float32 attention): forward and autograd
+    backward of `ms_deform_attn` in both forms on the decoder's shapes
+    (B=2), held against the plain versions on the same inputs -- forward,
+    dloc and dattn bit for bit in float32 arithmetic and in the factorized
+    form, else within TOL; dvalue within TOL -- each through the staged
+    kernels (the preparation aligns the value) or, for TYPED, the kernels
+    it names. Returns the launches."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     total = {name: 0 for name in KERNELS}
     for fac in (False, True):
@@ -597,41 +631,46 @@ def unprepared_inputs_phase():
         plain_fwd, plain_bwd = ((ms_deform_attn_fac_torch, ms_deform_attn_fac_torch_backward)
                                 if fac else (ms_deform_attn_torch, ms_deform_attn_torch_backward))
         op = "msda_fac" if fac else "msda"
-        for dtype in (torch.float32, torch.bfloat16):
-            for name, make in UNPREPARED.items():
-                value, loc, attn = make(*msda_inputs(gen, B=2, Lq=300, M=8, D=32, P=4,
-                                                     shapes=LEVELS, lo=-1.0, hi=1.0,
-                                                     dtype=dtype))
-                grad = torch.randn(2, 300, 256, generator=gen, device="cuda").to(value.dtype)
-                leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
-                with fac_formulation() if fac else contextlib.nullcontext():
-                    reset_counts()
-                    out = ms_deform_attn(leaves[0], LEVELS, leaves[1], leaves[2])
-                    out.backward(grad)
-                    torch.cuda.synchronize()
-                    counts = read_counts()
-                exact = fac or value.dtype == torch.float32
-                errs = []
-                for gname, o, r in zip(("out", "dvalue", "dloc", "dattn"),
-                                       (out.detach(), *(t.grad for t in leaves)),
-                                       (plain_fwd(value, LEVELS, loc, attn),
-                                        *plain_bwd(value, LEVELS, loc, attn, grad))):
-                    err = float((o.float() - r.float()).abs().max())
-                    rel = err / max(float(r.float().abs().max()), 1e-30)
-                    errs.append(f"{gname} {err:.2e}")
-                    tol = 0.0 if exact and gname != "dvalue" else TOL[value.dtype]
-                    if o.dtype != r.dtype or o.shape != r.shape or not rel <= tol:
-                        raise AssertionError(f"[unprepared] {form} {name} ({dtype}): {gname} "
-                                             f"max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol})")
-                want = expected({f"{op}_fwd": 1, f"{op}_bwd": 1, f"{op}_fwd_staged": 1,
-                                 f"{op}_bwd_staged": 1})
-                if counts != want:
-                    raise AssertionError(f"[unprepared] {form} {name}: launches {counts}")
-                for k, c in counts.items():
-                    total[k] += c
-                log(f"[unprepared] {form} {str(value.dtype)[6:]} value, {name}: max_abs_err vs "
-                    f"plain {', '.join(errs)} ({'exact' if exact else 'dvalue'} within tol); "
-                    f"staged kernels ok")
+        cases = [(name, make, dtype, "staged") for dtype in (torch.float32, torch.bfloat16)
+                 for name, make in UNPREPARED.items()]
+        cases += [(name, lambda v, loc, a, vdt=vdt, adt=adt: (
+            v.to(vdt), loc.to(torch.promote_types(vdt, torch.float32)), a.to(adt)),
+            torch.float32, kinds[form]) for name, (vdt, adt, kinds) in TYPED.items()]
+        for name, make, dtype, kind in cases:
+            value, loc, attn = make(*msda_inputs(gen, B=2, Lq=300, M=8, D=32, P=4,
+                                                 shapes=LEVELS, lo=-1.0, hi=1.0, dtype=dtype))
+            grad = torch.randn(2, 300, 256, generator=gen, device="cuda").to(value.dtype)
+            leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+            with fac_formulation() if fac else contextlib.nullcontext():
+                reset_counts()
+                out = ms_deform_attn(leaves[0], LEVELS, leaves[1], leaves[2])
+                out.backward(grad)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            # bit for bit where the kernels compute the plain version's arithmetic:
+            # float32 (a float16 value widened), float64, the factorized form
+            exact = fac or value.dtype != torch.bfloat16 or attn.dtype != torch.bfloat16
+            errs = []
+            for gname, o, r in zip(("out", "dvalue", "dloc", "dattn"),
+                                   (out.detach(), *(t.grad for t in leaves)),
+                                   (plain_fwd(value, LEVELS, loc, attn),
+                                    *plain_bwd(value, LEVELS, loc, attn, grad))):
+                err = float((o.double() - r.double()).abs().max())
+                rel = err / max(float(r.double().abs().max()), 1e-30)
+                errs.append(f"{gname} {err:.2e}")
+                tol = 0.0 if exact and gname != "dvalue" else TOL[value.dtype]
+                if o.dtype != r.dtype or o.shape != r.shape or not rel <= tol:
+                    raise AssertionError(f"[unprepared] {form} {name} ({dtype}): {gname} "
+                                         f"max_abs_err {err:.3e}, rel {rel:.3e} (tol {tol})")
+            want = expected({f"{op}_fwd": 1, f"{op}_bwd": 1, f"{op}_fwd_{kind}": 1,
+                             f"{op}_bwd_{kind}": 1})
+            if counts != want:
+                raise AssertionError(f"[unprepared] {form} {name}: launches {counts}")
+            for k, c in counts.items():
+                total[k] += c
+            log(f"[unprepared] {form} {str(value.dtype)[6:]} value, {str(attn.dtype)[6:]} "
+                f"attention, {name}: max_abs_err vs plain {', '.join(errs)} "
+                f"({'exact' if exact else 'dvalue'} within tol); {kind} kernels ok")
     return total
 
 
@@ -1198,6 +1237,182 @@ def msda_device_ms(kernels):
     return ", ".join(f"{n} {ms:.3f} ({c})" for n, (ms, c) in sorted(msda.items()))
 
 
+# ------------------------------------------------------------ 13. the CLI
+
+#: the [cli] phase's synthetic ARCTIC root: 2 sequences x 17 frames x 2
+#: views = 68 frames, 4 train batches of 16 (drop_last) and 5 val batches
+CLI_SEQS, CLI_FRAMES, CLI_VIEWS = 2, 17, 2
+CLI_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cli_smoke")
+
+
+def cli_root(path):
+    """A synthetic ARCTIC root for the CLI (`make_synthetic_root` with the
+    object bank the CLI builds when no meshes are present, so the object GT
+    is consistent with it). In sequence 0 frames 1..15 are made one static
+    frame (every view), and in view 0 the right hand is moved so that a
+    hand vertex touches an object vertex over them: a contact window of 15
+    frames that touches neither end of the sequence, so MDev has a window
+    to measure. Returns the root."""
+    from uvhand_tpu_torch.data.process import process_targets
+
+    root = os.path.join(path, "arctic")
+    bank = objects.synthetic_object_bank(2, device="cpu")
+    arctic.make_synthetic_root(root, num_seqs=CLI_SEQS, frames=CLI_FRAMES, views=CLI_VIEWS,
+                               seed=SEED, obj_bank=bank)
+    files = [os.path.join(root, f"splits/p1_{split}.npy") for split in ("train", "val")]
+    data = np.load(files[0], allow_pickle=True).item()
+    key = sorted(data["data_dict"])[0]
+    seq = data["data_dict"][key]
+    window = slice(2, CLI_FRAMES - 1)
+    for group in ("cam_coord", "2d", "params"):
+        for arr in seq[group].values():
+            arr[window] = arr[1]
+    seq["bbox"][window] = seq["bbox"][1]
+
+    def save():
+        for f in files:
+            np.save(f, data, allow_pickle=True)
+
+    def contact(frame_name):
+        save()
+        ds = arctic.ArcticDataset(root, "p1", "val", kp3d_cano=bank.kp_bottom.numpy())
+        batch = arctic.collate([ds[ds.imgnames.index(frame_name)]])
+        world = (mano.synthetic_mano(0, True, device="cpu"),
+                 mano.synthetic_mano(1, False, device="cpu"), bank)
+        with torch.inference_mode():
+            t = process_targets(engine.to_device(batch, "cpu"), *world, IMG_RES)
+        return t["mano.v3d.cam.r"][0], t["object.v.cam"][0], t["dist.ro"][0]
+
+    name = next(n for n in data["imgnames"] if f"/{key.split('/')[1]}/0/00001." in n)
+    v_r, v_o, _ = contact(name)
+    seq["cam_coord"]["joints.right"][1:CLI_FRAMES - 1, 0] += (v_o[0] - v_r[0]).numpy()
+    _, _, dist = contact(name)
+    if not float(dist.min()) < 1e-3:
+        raise AssertionError(f"[cli] the contact window was not made: min dist.ro {dist.min()}")
+    return root
+
+
+def cli_argv(data_dir, out, *extra):
+    """The CLI's flags for arctic_sf at full width (the defaults: R50, d=256,
+    8 heads, 6+6 layers, FFN 1024, 300 queries, 4 levels), two-stage with
+    box refinement, batches of 16, `--debug` steps."""
+    return ["--dataset_file", "arctic", "--coco_path", data_dir, "--output_dir", out,
+            "--two_stage", "--with_box_refine", "--batch_size", str(BATCH),
+            "--val_batch_size", str(BATCH), "--epochs", "1", "--debug", "--num_workers", "8",
+            "--seed", str(SEED), *extra]
+
+
+def cli_phase(card):
+    """Phase 13: arctic_sf through the port's CLI (`cli.main.main`) on a
+    synthetic ARCTIC root on disk. Three runs, each with every count set to
+    0 just before it and read just after:
+      1. an fp32 epoch of 4 `--debug` steps and its end-of-epoch eval (4
+         batches), writing out/0/checkpoint.pth;
+      2. `--eval --resume out/0` with the default metrics: 4 batches and
+         the sequence pass (ACC, MDev) over the 4 (sequence, view) groups;
+      3. a `--bf16` epoch of 2 steps under UVHAND_MSDA_FAC=1, its eval 2
+         batches.
+    Checks: 12 staged forward launches a batch and 12 + 12 a step (the
+    factorized kernels in run 3), no general or research launch; the
+    resumed eval's batch scores equal the in-process eval's; every score
+    finite; the loader's prefetched CUDA batches equal its host batches bit
+    for bit. Prints the steady step ms, the wait for the loader a step,
+    the loader's frames/s with no model, the eval batch ms and each run's
+    wall clock. Returns the launches of each run."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    data_dir = os.path.join(CLI_DIR, "data")
+    t0 = time.perf_counter()
+    root = cli_root(data_dir)
+    log(f"[cli] synthetic root of {CLI_SEQS * CLI_FRAMES * CLI_VIEWS} frames written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the data path alone: the loader's rate, and its prefetch to the card
+    ds = arctic.ArcticDataset(root, "p1", "train", seed=SEED,
+                              kp3d_cano=objects.synthetic_object_bank(2, device="cpu").kp_bottom.numpy())
+    loader = DataLoader(ds, BATCH, seed=SEED, num_workers=8)
+    try:
+        t0 = time.perf_counter()
+        host = list(loader)
+        rate = len(host) * BATCH / (time.perf_counter() - t0)
+        n = 0
+        for got, want in zip(device_prefetch(loader, "cuda"), host):
+            for k, v in want.items():
+                if not (got[k].is_cuda and torch.equal(got[k].cpu(), torch.from_numpy(v))):
+                    raise AssertionError(f"[cli] prefetched batch {n}: {k} differs from the "
+                                         f"host batch")
+            n += 1
+        torch.cuda.synchronize()
+    finally:
+        loader.close()
+    if n != len(host) or n < 4:
+        raise AssertionError(f"[cli] {n} prefetched batches of {len(host)}")
+    log(f"[cli] loader alone (8 thread workers, augmentation on, decode + crop + collate): "
+        f"{rate:.1f} frames/s over {len(host)} batches of {BATCH} (one epoch, cold); "
+        f"{n} batches prefetched to the card equal the host batches bit for bit ({card})")
+
+    out = os.path.join(CLI_DIR, "out")
+    parse = cli.get_args_parser().parse_args
+    runs = {}
+
+    def run(tag, argv, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli.main(parse(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"[cli] {tag}: launches {counts}, expected {want}")
+        timing = res["timing"]
+        steps, waits = timing.get("step_ms", []), timing.get("wait_ms", [])
+        parts = [f"wall clock {wall:.2f} s (model build, data and compile included)"]
+        if steps:
+            parts.append(f"steps {', '.join(f'{x:.1f}' for x in steps)} ms (steady "
+                         f"{np.median(steps[1:]) if len(steps) > 1 else steps[0]:.1f} ms), "
+                         f"waiting on the loader {', '.join(f'{x:.1f}' for x in waits)} ms "
+                         f"a step")
+        parts.append(f"eval batches {', '.join(f'{x:.1f}' for x in timing['batch_ms'])} ms")
+        log(f"[cli] {tag}: {'; '.join(parts)}; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})} ({card})")
+        runs[tag] = counts
+        return res
+
+    per_step = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}
+    train = run("fp32 train epoch", cli_argv(data_dir, out, "--num_debug", "4"),
+                expected(staged({k: 2 * v if k == "msda_fwd" else v
+                                 for k, v in per_step.items()}), 4))
+    seq_batches = CLI_SEQS * CLI_VIEWS * -(-CLI_FRAMES // BATCH)
+    evald = run("fp32 eval --resume out/0", cli_argv(
+        data_dir, os.path.join(CLI_DIR, "eval"), "--num_debug", "4", "--eval", "--resume",
+        os.path.join(out, "0")), expected(SERVE, 4 + seq_batches))
+    with fac_formulation():
+        bf16 = run("bf16 FAC train epoch", cli_argv(
+            data_dir, os.path.join(CLI_DIR, "bf16"), "--num_debug", "2", "--bf16"),
+            expected(staged({"msda_fac_fwd": 2 * MSDA_PER_FORWARD,
+                             "msda_fac_bwd": MSDA_PER_FORWARD}), 2))
+
+    in_process = train["epochs"][0]["scores"]
+    resumed = evald["scores"][0]
+    for k, v in in_process.items():
+        if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
+            raise AssertionError(f"[cli] {k}: resumed eval {resumed[k]} != in-process {v}")
+    log(f"[cli] the resumed eval's batch scores equal the end-of-epoch eval's: "
+        f"{json.dumps(in_process)}")
+    log(f"[cli] resumed eval, default metrics (random weights): {json.dumps(resumed)}")
+    log(f"[cli] bf16 FAC epoch: losses {json.dumps(bf16['epochs'][0]['stats'])}, scores "
+        f"{json.dumps(bf16['epochs'][0]['scores'])}")
+    scores = {**{f"train {k}": v for k, v in train["epochs"][0]["stats"].items()},
+              **{f"eval {k}": v for k, v in resumed.items()},
+              **{f"bf16 {k}": v for k, v in bf16["epochs"][0]["stats"].items()},
+              **{f"bf16 eval {k}": v for k, v in bf16["epochs"][0]["scores"].items()}}
+    bad = sorted(k for k, v in scores.items() if not np.isfinite(v))
+    if bad or not {"acc/h", "acc/o", "mdev/h"} <= set(resumed):
+        raise AssertionError(f"[cli] scores not finite or missing: {bad}")
+    log(f"[cli] phase 13 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return runs
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1291,6 +1506,9 @@ def main() -> int:
     serve_fac_fp32 = fac_fp32_phase(
         fp32_out, torch.as_tensor(batches[0]["images"], device="cuda"))
 
+    # 13. the port's CLI on a synthetic ARCTIC root on disk
+    cli_runs = cli_phase(card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -1305,10 +1523,11 @@ def main() -> int:
 
     log("[kernel] ms, plain_ms and bound_ms are per forward or backward of the model (6 encoder "
         "+ 6 decoder calls): float32 for the gather kernels (bf16 under *_bf16), bf16 for the "
-        "factorized kernels (their path here; fp32 under *_fp32); launches are the fp32 serving "
-        "path's (msda_fwd_staged), the fp32 training path's (msda_bwd_staged), the FAC bf16 "
-        "paths' (msda_fac_*_staged) and phase 3e's general paths' (msda_*_general: arctic_sf's "
-        "shapes launch none of them); launches_by_path gives every path's count")
+        "factorized kernels (their path here; fp32 under *_fp32); launches are the CLI's (phase "
+        "13, the users' entry point): its fp32 epoch (msda_fwd_staged, msda_bwd_staged: 4 steps "
+        "and 4 eval batches) and its bf16 FAC epoch (msda_fac_*_staged: 2 steps and 2 eval "
+        "batches), and phase 3e's general paths' (msda_*_general: arctic_sf's shapes launch none "
+        "of them); launches_by_path gives every path's count")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -1323,7 +1542,10 @@ def main() -> int:
                 "serve_bf16_fac": serve_fac[name], "train_bf16_fac": train_fac[name],
                 "serve_fp32_fac": serve_fac_fp32[name],
                 "research": research_numbers["launches"][name], "general": general[name],
-                "fac_general": fac_general[name], "unprepared": unprepared[name]}
+                "fac_general": fac_general[name], "unprepared": unprepared[name],
+                "cli_fp32_train": cli_runs["fp32 train epoch"][name],
+                "cli_fp32_eval": cli_runs["fp32 eval --resume out/0"][name],
+                "cli_bf16_fac_train": cli_runs["bf16 FAC train epoch"][name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
@@ -1347,13 +1569,14 @@ def main() -> int:
     k1, k23 = "uvhand_tpu/ops/msda_pallas.py:207", "uvhand_tpu/ops/msda_pallas.py:233, :320"
     k4, k5 = "uvhand_tpu/ops/msda_pallas.py:388", "uvhand_tpu/ops/msda_pallas.py:429"
     log(json.dumps({"kernels": [
-        gather_row("msda_fwd", "staged", timed, max_err, serve_fp32["msda_fwd_staged"], k1),
+        gather_row("msda_fwd", "staged", timed, max_err, cli_runs["fp32 train epoch"]["msda_fwd_staged"], k1),
         gather_row("msda_fwd", "general", timed, max_err, general["msda_fwd_general"], k1),
-        gather_row("msda_bwd", "staged", btimed, bmax_err, train_fp32["msda_bwd_staged"], k23),
+        gather_row("msda_bwd", "staged", btimed, bmax_err, cli_runs["fp32 train epoch"]["msda_bwd_staged"],
+                   k23),
         gather_row("msda_bwd", "general", btimed, bmax_err, general["msda_bwd_general"], k23),
-        fac_row("msda_fac_fwd", "staged", "fwd", serve_fac["msda_fac_fwd_staged"], k4),
+        fac_row("msda_fac_fwd", "staged", "fwd", cli_runs["bf16 FAC train epoch"]["msda_fac_fwd_staged"], k4),
         fac_row("msda_fac_fwd", "general", "fwd", fac_general["msda_fac_fwd_general"], k4),
-        fac_row("msda_fac_bwd", "staged", "bwd", train_fac["msda_fac_bwd_staged"], k5),
+        fac_row("msda_fac_bwd", "staged", "bwd", cli_runs["bf16 FAC train epoch"]["msda_fac_bwd_staged"], k5),
         fac_row("msda_fac_bwd", "general", "bwd", fac_general["msda_fac_bwd_general"], k5),
         *research_rows(research_numbers, by_path),
     ]}))

@@ -20,7 +20,9 @@ forward and the backward's dloc and dattn bit-identical to the plain
 versions, dvalue within the backward's tolerance. `ms_deform_attn` on inputs
 the kernels do not take as they are (a misaligned or transposed value,
 bfloat16 locations, attention of another type) equals the plain version on
-the same inputs.
+the same inputs; so does it on a float16 or float64 value, both forms
+(float16 2e-3 and float64 1e-12 of dvalue's max: its sums are float32 or
+float64 atomics, and float16 rounds them once).
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -51,7 +53,7 @@ CASES = {
     # every sample on an exact pixel centre: the tents' kinks
     "integer_exact": (2, 40, 2, 16, 2, ((8, 16), (4, 8)), "integer"),
 }
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
 #: formulation: (forward kernel, its plain version, backward kernel, its plain version)
 FORMS = {
     "gather": (msda_cuda.ms_deform_attn_cuda, ms_deform_attn_torch,
@@ -233,21 +235,19 @@ def test_op_backward_takes_inputs_the_kernels_do_not_take_as_they_are(cuda, unpr
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("vdt,adt", [(torch.float32, torch.bfloat16),
-                                     (torch.bfloat16, torch.float32)], ids=str)
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float16, torch.float32)], ids=str)
 def test_op_takes_attention_of_another_type(cuda, vdt, adt, form, monkeypatch):
     """Attention of another type than the value's: taken as the CPU path
-    takes it, but for a bfloat16 value in the factorized form, which rounds
-    at the value's type (a TypeError)."""
+    takes it. With a bfloat16 or float16 value the factorized form keeps
+    the value's type (it rounds at it) and its general kernels read the
+    attention in float32; the gather form computes in float32."""
     monkeypatch.setenv("UVHAND_MSDA_FAC", "1" if form == "fac" else "0")
     value, shapes, loc, attn, gen = make_inputs("decoder", vdt, cuda)
     attn = attn.to(adt)
     b, lq, m, d = CASES["decoder"][:4]
     grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(vdt)
     leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
-    if form == "fac" and vdt == torch.bfloat16:
-        with pytest.raises(TypeError, match="factorized"):
-            ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
-        return
     out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
     out.backward(grad)
     torch.cuda.synchronize()
@@ -257,6 +257,41 @@ def test_op_takes_attention_of_another_type(cuda, vdt, adt, form, monkeypatch):
     for name, leaf, r in zip(("dvalue", "dloc", "dattn"), leaves, ref):
         assert_matches(name, leaf.grad, r, TOL[vdt] if name == "dvalue" else
                        exact_tol(form, vdt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64], ids=str)
+@pytest.mark.parametrize("case", ["decoder", "out_of_range", "integer_exact"])
+def test_op_takes_float16_and_float64_values(cuda, case, dtype, form, monkeypatch):
+    """A float16 or float64 value (attention in its type, locations in the
+    arithmetic type): the gather form widens float16 to float32 (the plain
+    version computes it so) and runs float64 in the general kernel in
+    float64; the factorized form's general kernels round at float16 and
+    compute float64 throughout. Forward, dloc and dattn equal the plain
+    version bit for bit; dvalue (atomics) within TOL."""
+    monkeypatch.setenv("UVHAND_MSDA_FAC", "1" if form == "fac" else "0")
+    value, shapes, loc, attn, gen = make_inputs(case, dtype, cuda)
+    loc = loc.to(torch.promote_types(dtype, torch.float32))
+    b, lq, m, d = CASES[case][:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (value, loc, attn)]
+    general = [msda_cuda.FAC_FWD_GENERAL, msda_cuda.FAC_BWD_GENERAL, msda_cuda.FWD_GENERAL,
+               msda_cuda.BWD_GENERAL]
+    before = [c.launches for c in general]
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert_matches("forward", out.detach(), FORMS[form][1](value, shapes, loc, attn), 0.0)
+    ref = FORMS[form][3](value, shapes, loc, attn, grad)
+    for name, leaf, r in zip(("dvalue", "dloc", "dattn"), leaves, ref):
+        assert leaf.grad.dtype == leaf.dtype, name
+        assert_matches(name, leaf.grad, r, TOL[dtype] if name == "dvalue" else 0.0)
+    delta = [c.launches - n for c, n in zip(general, before)]
+    # float16 in the gather form runs the float32 kernels (staged where planned)
+    want = [1, 1, 0, 0] if form == "fac" else [0, 0, 1, 1] if dtype == torch.float64 else None
+    if want is not None:
+        assert delta == want
 
 
 @pytest.mark.cuda

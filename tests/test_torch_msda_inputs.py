@@ -1,7 +1,10 @@
 """The MSDA op on inputs the CUDA kernels do not take as they are, on the CPU.
 
-The kernels take float32 locations and contiguous value, attention and
-gradient of one type, and the staged kernels a 16-byte-aligned value. The op
+The kernels take locations in the arithmetic type (float32, float64 for a
+float64 value), contiguous value, attention and gradient of the types they
+compute (float32, bfloat16, float64; float16 in the factorized form; there
+also float32 attention with a bfloat16 or float16 value), and the staged
+kernels a 16-byte-aligned value. The op
 (`uvhand_tpu_torch/ops/msda.py`) brings the caller's tensors into that form
 with `kernel_inputs` before a launch, so that it takes on the card what it
 takes on the CPU, as the JAX package's `ms_deform_attn` takes any array.
@@ -13,6 +16,8 @@ Here, on CPU tensors:
     prepared inputs, cast back as the op casts the kernels' results, give
     exactly the plain versions on the caller's tensors: the preparation does
     not change the function, attention of another type included;
+  - every pair of value and attention types reaches a kernel that takes
+    it (the launch replaced by a stub), with the function unchanged;
   - `ms_deform_attn` and its autograd backward on each such input equal
     those on its contiguous twin, in both forms.
 Tolerance: none (bit for bit). The card side of the same calls is
@@ -132,28 +137,75 @@ def test_kernel_inputs_take_attention_of_another_type(vdt, adt, form):
     """The plain versions compute the attention in float32 (or the value's
     wider type): a float32 value takes any attention type, made float32; a
     bfloat16 value takes one in the gather form, which computes in float32
-    anyway (value widened, results rounded back), and the factorized form,
-    which rounds at the value's type, refuses it."""
+    anyway (value widened, results rounded back), and in the factorized
+    form, which rounds at the value's type, keeps its type and gets the
+    attention in float32, which the factorized general kernels read."""
     value, loc, attn, grad = inputs(vdt)
     attn = attn.to(adt)
-    if form == "fac" and vdt == torch.bfloat16:
-        with pytest.raises(TypeError, match="factorized"):
-            kernel_inputs(value, loc, attn, True, grad)
-        return
     v, lc, a, g = kernel_inputs(value, loc, attn, form == "fac", grad)
-    assert v.dtype == a.dtype == g.dtype == torch.float32
+    if form == "fac" and vdt == torch.bfloat16:
+        assert v.dtype == g.dtype == torch.bfloat16 and a.dtype == torch.float32
+    else:
+        assert v.dtype == a.dtype == g.dtype == torch.float32
     fwd, bwd, _ = FORMS[form]
     assert_same(run_as_on_the_card(form, value, loc, attn, grad),
                 (fwd(value, SHAPES, loc, attn), *bwd(value, SHAPES, loc, attn, grad)))
 
 
 def test_kernel_inputs_leave_other_value_types_to_the_wrapper():
-    """A float64 or float16 value is not the kernels' (the wrapper refuses
-    it); the preparation does not change its type."""
+    """A float64 value keeps its type (the general kernels of both forms
+    compute in float64, on float64 locations); a float16 value keeps it in
+    the factorized form (its general kernels round at float16) and is
+    widened to float32 in the gather form, which computes in float32."""
     value, loc, attn, grad = inputs(torch.float32)
-    for dtype in (torch.float64, torch.float16):
-        v, _, a, g = kernel_inputs(value.to(dtype), loc, attn, False, grad.to(dtype))
-        assert v.dtype == dtype and g.dtype == dtype
+    for fac in (False, True):
+        v, lc, a, g = kernel_inputs(value.double(), loc, attn, fac, grad.double())
+        assert v.dtype == a.dtype == g.dtype == lc.dtype == torch.float64
+        v, lc, a, g = kernel_inputs(value.half(), loc, attn.half(), fac, grad.half())
+        assert v.dtype == a.dtype == g.dtype == (torch.float16 if fac else torch.float32)
+        assert lc.dtype == torch.float32
+
+
+ALL_TYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("adt", ALL_TYPES, ids=str)
+@pytest.mark.parametrize("vdt", ALL_TYPES, ids=str)
+def test_every_value_and_attention_type_reaches_a_kernel(vdt, adt, form, monkeypatch):
+    """Every pair of value and attention types the CPU path takes: the
+    prepared inputs pass the wrappers' type checks, the wrapper launches the
+    staged kernel only for float32 or bfloat16 value and attention of one
+    type (the model paths') and the general one otherwise (launch replaced
+    by a stub: the kernels run only on the card), and the plain versions on
+    the prepared inputs, cast back, equal them on the caller's, bit for
+    bit."""
+    from uvhand_tpu_torch.ops import msda_cuda
+    fac = form == "fac"
+    value, loc, attn, grad = inputs(vdt, seed=1)
+    attn = attn.to(adt)
+    v, lc, a, g = kernel_inputs(value, loc, attn, fac, grad)
+    msda_cuda.check_types(("value", v), lc, a, [("grad_out", g)],
+                          msda_cuda.FAC_TYPES if fac else msda_cuda.GATHER_TYPES, mixed=fac)
+    launched = []
+    for name in ("_launch_forward", "_launch_backward"):
+        monkeypatch.setattr(msda_cuda, name,
+                            lambda entry, what, *args, plan, fac: launched.append(entry))
+    prefix = "msda_fac_" if fac else "msda_"
+    wrappers = ((msda_cuda.ms_deform_attn_fac_cuda, msda_cuda.ms_deform_attn_fac_backward_cuda)
+                if fac else (msda_cuda.ms_deform_attn_cuda,
+                             msda_cuda.ms_deform_attn_backward_cuda))
+    # D = 8 rows fit a staged plan at these shapes
+    wrappers[0](v, SHAPES, lc, a)
+    wrappers[1](v, SHAPES, lc, a, g)
+    staged = v.dtype == a.dtype and v.dtype in (torch.float32, torch.bfloat16)
+    suffix = "_staged" if staged else ""
+    assert launched == [prefix + "fwd" + suffix, prefix + "bwd" + suffix]
+    if v.dtype == torch.bfloat16 and a.dtype == torch.bfloat16:
+        assert vdt == adt == torch.bfloat16  # only the model paths' own bf16 stays bf16
+    fwd, bwd, _ = FORMS[form]
+    assert_same(run_as_on_the_card(form, value, loc, attn, grad),
+                (fwd(value, SHAPES, loc, attn), *bwd(value, SHAPES, loc, attn, grad)))
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))

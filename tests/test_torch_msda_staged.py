@@ -167,16 +167,17 @@ def test_wrappers_launch_the_kernel_the_plan_picks(form, kernel, shapes, D, want
                    "msda_fac_bwd", "FAC_FWD", "FAC_BWD")}[form]
     launched = []
     monkeypatch.setattr(msda_cuda, "_launch_forward",
-                        lambda entry, what, *args, plan: launched.append((entry, plan)))
+                        lambda entry, what, *args, plan, fac: launched.append((entry, plan)))
     monkeypatch.setattr(msda_cuda, "_launch_backward",
-                        lambda entry, what, *args, plan: launched.append((entry, plan)))
+                        lambda entry, what, *args, plan, fac: launched.append((entry, plan)))
     value = torch.zeros(1, sum(h * w for h, w in shapes), 2, D)
+    attn = torch.zeros(1, 1, 2, len(shapes), 1)  # in the value's type
     counts = [getattr(msda_cuda, f"{op}_{kind.upper()}") for op in ops[4:]
               for kind in ("staged", "general")]
     wrappers = [getattr(msda_cuda, name) for name in ops[:2]]
     before = [c.launches for c in counts + wrappers]
-    getattr(msda_cuda, ops[0])(value, shapes, None, None, kernel=kernel)
-    getattr(msda_cuda, ops[1])(value, shapes, None, None, None, kernel=kernel)
+    getattr(msda_cuda, ops[0])(value, shapes, None, attn, kernel=kernel)
+    getattr(msda_cuda, ops[1])(value, shapes, None, attn, None, kernel=kernel)
     suffix = "_staged" if want == "staged" else ""
     assert [entry for entry, _ in launched] == [ops[2] + suffix, ops[3] + suffix]
     for (_, plan), backward in zip(launched, (False, True)):

@@ -1,9 +1,10 @@
 """ARCTIC per-frame evaluation metrics.
 
-Port of the per-batch metrics of `uvhand_tpu/evaluation/metrics.py` (the
-reference's `eval_modules.py`): AAE, MPJPE-RA, MRRPE, success rate and
-CDev. Each returns one value per frame, NaN where the frame is invalid;
-aggregation is a nanmean over frames.
+Port of `uvhand_tpu/evaluation/metrics.py` (the reference's
+`eval_modules.py`): the per-batch metrics AAE, MPJPE-RA, MRRPE, success
+rate and CDev, and the sequence metric ACC (`eval_acc_pose`, on
+time-ordered frames). Each returns one value per frame, NaN where the frame
+is invalid; aggregation is a nanmean over frames.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ def compute_mrrpe(root_a_gt, root_b_gt, root_a_pred, root_b_pred, valid):
     return torch.where(valid > 0, err, NAN)
 
 
+def compute_arti_deg_error(pred_radian, gt_radian):
+    return (pred_radian - gt_radian).abs() / math.pi * 180.0
+
+
 def object_bottom_root(v_cam, parts_ids):
     """Mean of the bottom-part (parts_ids == 2) vertices. -> (B, 3)."""
     m = (parts_ids == 2).to(v_cam.dtype)
@@ -34,8 +39,8 @@ def object_bottom_root(v_cam, parts_ids):
 
 
 def eval_degree(pred, targets) -> Dict[str, torch.Tensor]:
-    err = (pred["object.radian"].reshape(-1) - targets["object.radian"].reshape(-1)).abs()
-    err = err / math.pi * 180.0
+    err = compute_arti_deg_error(pred["object.radian"].reshape(-1),
+                                 targets["object.radian"].reshape(-1))
     return {"aae": torch.where(targets["is_valid"] > 0, err, NAN)}
 
 
@@ -111,6 +116,55 @@ eval_fn_dict = {
     "success_rate": eval_v2v_success,
     "cdev": eval_contact_deviation,
 }
+
+
+def compute_error_accel(gt, pred, fps: float = 30.0):
+    """[1, -2, 1] / h^2 stencil acceleration error per frame."""
+    h = 1.0 / fps
+    a_gt = (gt[:-2] - 2 * gt[1:-1] + gt[2:]) / h**2
+    a_pred = (pred[:-2] - 2 * pred[1:-1] + pred[2:]) / h**2
+    return torch.linalg.norm(a_pred - a_gt, dim=2).mean(1)
+
+
+def _acc_valid(valid):
+    v = valid > 0
+    return v[:-2] & v[1:-1] & v[2:]
+
+
+def eval_acc_pose(pred, targets, fps: float = 30.0) -> Dict[str, torch.Tensor]:
+    """Sequence-level: inputs ordered by time. Root-relative vertex
+    acceleration error of the hands (acc/h, the mean of the valid hands)
+    and of the object about its bottom part's mean (acc/o), NaN at the two
+    end frames and where a frame of the stencil is invalid."""
+    is_valid = targets["is_valid"]
+    lv = targets["left_valid"] * is_valid
+    rv = targets["right_valid"] * is_valid
+    parts = targets["object.parts_ids"]
+
+    root_o_gt = object_bottom_root(targets["object.v.cam"], parts)[:, None]
+    root_o_pred = object_bottom_root(pred["object.v.cam"], parts)[:, None]
+
+    acc_r = compute_error_accel(
+        targets["mano.v3d.cam.r"] - targets["mano.j3d.cam.r"][:, :1],
+        pred["mano.v3d.cam.r"] - pred["mano.j3d.cam.r"][:, :1], fps,
+    )
+    acc_l = compute_error_accel(
+        targets["mano.v3d.cam.l"] - targets["mano.j3d.cam.l"][:, :1],
+        pred["mano.v3d.cam.l"] - pred["mano.j3d.cam.l"][:, :1], fps,
+    )
+    acc_o = compute_error_accel(
+        targets["object.v.cam"] - root_o_gt, pred["object.v.cam"] - root_o_pred, fps
+    )
+    acc_r = torch.where(_acc_valid(rv), acc_r, NAN)
+    acc_l = torch.where(_acc_valid(lv), acc_l, NAN)
+    acc_o = torch.where(_acc_valid(is_valid), acc_o, NAN)
+    acc_h = torch.stack([acc_r, acc_l], 1).nanmean(1)
+
+    pad = acc_h.new_full((1,), NAN)
+    return {
+        "acc/h": torch.cat([pad, acc_h, pad]),
+        "acc/o": torch.cat([pad, acc_o, pad]),
+    }
 
 
 def measure_error(pred, targets,

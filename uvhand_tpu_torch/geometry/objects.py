@@ -7,6 +7,7 @@ canonical axis [0, 0, -1] by a radian, then rotated globally
 16-corner bbox3d (top 8 + bottom 8) and 32 keypoints (top 16 + bottom 16).
 Objects are picked by indexing a stacked, padded bank.
 
+`load_object_bank` reads the official ARCTIC `object_vtemplates` layout, and
 `synthetic_object_bank` draws a structurally identical bank from a seed with
 the same numpy stream as the JAX package.
 """
@@ -14,6 +15,8 @@ the same numpy stream as the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os.path as op
 
 import numpy as np
 import torch
@@ -101,6 +104,81 @@ def object_forward(
         "rot": global_orient,
         "radian": angles,
     }
+
+
+def _pad_stack(arrs, pad_to=None):
+    lens = np.array([len(a) for a in arrs])
+    m = int(pad_to or lens.max())
+    out = np.zeros((len(arrs), m) + arrs[0].shape[1:], arrs[0].dtype)
+    for i, a in enumerate(arrs):
+        out[i, : len(a)] = a
+    return out, lens
+
+
+def load_object_bank(meta_dir: str, names=OBJECT_NAMES, device=None) -> ObjectBank:
+    """Load the official ARCTIC `object_vtemplates` + `object_meta.json`
+    onto `device` (the CUDA card unless `device="cpu"`).
+
+    As the JAX package's `load_object_bank` (the reference's
+    construct_obj/construct_obj_tensors): mm -> meters (/1000), parts ids
+    offset +1, the 300-keypoint subsets matched to their nearest mesh vertex
+    for part labels. The faces are not read (the JAX bank's `f`, `f_len`
+    serve the penetration loss and visualisation, not ported)."""
+    dev = resolve_device(device)
+    vs, subs, parts_l, parts_sub_l = [], [], [], []
+    bb_t, bb_b, kp_t, kp_b, diam = [], [], [], [], []
+    with open(op.join(meta_dir, "object_meta.json")) as fh:
+        meta = json.load(fh)
+    for name in names:
+        d = op.join(meta_dir, "object_vtemplates", name)
+        verts = _load_obj_verts(op.join(d, "mesh.obj"))
+        with open(op.join(d, "parts.json")) as fh:
+            parts = np.array(json.load(fh), bool)
+        with open(op.join(d, "top_keypoints_300.json")) as fh:
+            sub_top = np.array(json.load(fh)["keypoints"])
+        with open(op.join(d, "bottom_keypoints_300.json")) as fh:
+            sub_bottom = np.array(json.load(fh)["keypoints"])
+        sub_v = np.concatenate([sub_top, sub_bottom], 0)
+        d2 = ((sub_v[:, None] - verts[None]) ** 2).sum(-1)
+        parts_sub = parts[np.argmin(d2, 1)]
+        with open(op.join(d, "object_params.json")) as fh:
+            params = json.load(fh)
+        obj_key = "".join(c for c in name if not c.isdigit())
+        vs.append(verts.astype(np.float32) / 1000)
+        subs.append(sub_v.astype(np.float32) / 1000)
+        parts_l.append(parts.astype(np.int32) + 1)
+        parts_sub_l.append(parts_sub.astype(np.int32) + 1)
+        bb_t.append(np.array(params["bbox_top"], np.float32) / 1000)
+        bb_b.append(np.array(params["bbox_bottom"], np.float32) / 1000)
+        kp_t.append(np.array(params["keypoints_top"], np.float32) / 1000)
+        kp_b.append(np.array(params["keypoints_bottom"], np.float32) / 1000)
+        diam.append(np.float32(meta[obj_key]["diameter"]))
+    v, v_len = _pad_stack(vs)
+    p, _ = _pad_stack(parts_l, pad_to=v.shape[1])
+    mask = (np.arange(v.shape[1])[None] < v_len[:, None]).astype(np.float32)
+    t = lambda x, dtype: torch.as_tensor(np.asarray(x, dtype), device=dev)
+    return ObjectBank(
+        v=t(v, np.float32),
+        mask=t(mask, np.float32),
+        v_len=t(v_len, np.int32),
+        v_sub=t(np.stack(subs), np.float32),
+        parts_ids=t(p, np.int32),
+        parts_sub_ids=t(np.stack(parts_sub_l), np.int32),
+        bbox_top=t(np.stack(bb_t), np.float32),
+        bbox_bottom=t(np.stack(bb_b), np.float32),
+        kp_top=t(np.stack(kp_t), np.float32),
+        kp_bottom=t(np.stack(kp_b), np.float32),
+        diameter=t(np.stack(diam), np.float32),
+        names=tuple(names),
+    )
+
+
+def _load_obj_verts(path: str) -> np.ndarray:
+    """The vertices of a wavefront OBJ file (the faces are not needed: no
+    ported module reads the object meshes' faces)."""
+    with open(path) as fh:
+        return np.asarray([[float(x) for x in line.split()[1:4]]
+                           for line in fh if line.startswith("v ")], np.float64)
 
 
 def synthetic_object_bank(seed: int = 0, num_objects: int = 11, vmax: int = 512,

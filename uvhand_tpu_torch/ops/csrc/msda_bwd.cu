@@ -32,7 +32,10 @@
 // (B, Lq, M*D) in the same type, locations (B, Lq, M, L, P, 2) float32.
 // Outputs: dvalue (B, S, M, D), dloc (B, Lq, M, L, P, 2) float32, dattn
 // (B, Lq, M, L, P) in the attention's type. bfloat16 inputs are widened and
-// every sum is float32. The file is built with -fmad=false, and dattn and
+// every sum is float32. The general kernel also takes float64 inputs
+// (locations, dvalue and dloc float64 too) and computes in float64
+// throughout, as the plain version does; its dvalue sums are float64
+// atomics. The file is built with -fmad=false, and dattn and
 // dloc repeat the plain version's (`ms_deform_attn_torch_backward`)
 // arithmetic in its order, so they agree with it bit for bit in float32 in
 // practice. dvalue is NOT deterministic: its float32 sums are atomics that
@@ -121,15 +124,18 @@ using namespace msda;
 enum class Out { Model, Pixel, PixelNoDpy, PixelNoDaw, PixelNoDv };
 enum class Gate { Where, Eq };
 
+// F is the arithmetic type (arith_t<T>): float, or double for a double value
+// (the model's outputs only).
 template <typename T, Out kOut = Out::Model, Gate kGate = Gate::Where>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_bwd_general_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+msda_bwd_general_kernel(const T* __restrict__ value, const arith_t<T>* __restrict__ loc,
                         const T* __restrict__ attn, const T* __restrict__ grad,
-                        float* __restrict__ dvalue, float* __restrict__ dloc,
+                        arith_t<T>* __restrict__ dvalue, arith_t<T>* __restrict__ dloc,
                         T* __restrict__ dattn, LevelPlan plan,
                         int B, int S, int Lq, int M, int D, int P,
                         float* __restrict__ dpy = nullptr, float* __restrict__ dpx = nullptr,
                         float* __restrict__ daw = nullptr) {
+  using F = arith_t<T>;
   constexpr bool kDv = kOut != Out::PixelNoDv;
   constexpr bool kDp = kOut != Out::PixelNoDpy;
   constexpr bool kDa = kOut != Out::PixelNoDaw;
@@ -140,60 +146,60 @@ msda_bwd_general_kernel(const T* __restrict__ value, const float* __restrict__ l
   const int b = (int)(row / ((long long)Lq * M));
   const int L = plan.n;
 
-  const float* loc_row = loc + row * (long long)(L * P * 2);
+  const F* loc_row = loc + row * (long long)(L * P * 2);
   const T* attn_row = attn + row * (long long)(L * P);
   const T* g_row = grad + row * (long long)D;
-  float* dloc_row = dloc + row * (long long)(L * P * 2);  // unused unless kOut is Model
+  F* dloc_row = dloc + row * (long long)(L * P * 2);  // unused unless kOut is Model
   T* dattn_row = dattn + row * (long long)(L * P);
   const long long bm_off = (long long)b * S * M * D + (long long)m * D;
 
   for (int l = 0; l < L; ++l) {
     const int H = plan.h[l];
     const int W = plan.w[l];
-    const float fH = (float)H;
-    const float fW = (float)W;
+    const F fH = (F)H;
+    const F fW = (F)W;
     const long long level_off = bm_off + (long long)plan.start[l] * M * D;
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float px = loc_row[2 * k] * fW - 0.5f;
-      const float py = loc_row[2 * k + 1] * fH - 0.5f;
-      const float a = to_float(attn_row[k]);
-      const float x0 = floorf(px);
-      const float y0 = floorf(py);
-      float da = 0.0f, gx = 0.0f, gy = 0.0f;
+      const F px = loc_row[2 * k] * fW - (F)0.5;
+      const F py = loc_row[2 * k + 1] * fH - (F)0.5;
+      const F a = to_float(attn_row[k]);
+      const F x0 = floor_of(px);
+      const F y0 = floor_of(py);
+      F da = (F)0, gx = (F)0, gy = (F)0;
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
-        const float cy = y0 + (float)dy;
-        const float hy = 1.0f - fabsf(py - cy);
-        float sy;
+        const F cy = y0 + (F)dy;
+        const F hy = (F)1 - abs_of(py - cy);
+        F sy;
         if constexpr (kGate == Gate::Eq) {
-          sy = dy == 0 ? 1.0f : -1.0f;
+          sy = dy == 0 ? (F)1 : (F)-1;
         } else {
-          sy = hy > 0.0f ? sign_of(py - cy) : 0.0f;
+          sy = hy > (F)0 ? sign_of(py - cy) : (F)0;
         }
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
-          const float cx = x0 + (float)dx;
-          const float hx = 1.0f - fabsf(px - cx);
-          float sx;
+          const F cx = x0 + (F)dx;
+          const F hx = (F)1 - abs_of(px - cx);
+          F sx;
           if constexpr (kGate == Gate::Eq) {
-            sx = dx == 0 ? 1.0f : -1.0f;
+            sx = dx == 0 ? (F)1 : (F)-1;
           } else {
-            sx = hx > 0.0f ? sign_of(px - cx) : 0.0f;
+            sx = hx > (F)0 ? sign_of(px - cx) : (F)0;
           }
-          const bool valid = cx >= 0.0f && cx < fW && cy >= 0.0f && cy < fH;
+          const bool valid = cx >= (F)0 && cx < fW && cy >= (F)0 && cy < fH;
           if (!valid) continue;  // uniform across the warp
-          const float wc = hy * hx;
-          const float aw = a * wc;
+          const F wc = hy * hx;
+          const F aw = a * wc;
           const long long cell = (long long)cy * W + (long long)cx;
           const T* v_c = value + level_off + cell * M * D;
-          float* dv_c = dvalue + level_off + cell * M * D;
-          float dot = 0.0f;
+          F* dv_c = dvalue + level_off + cell * M * D;
+          F dot = (F)0;
           for (int d0 = 0; d0 < D; d0 += 32) {
             const int d = d0 + lane;
-            float gv = 0.0f;
+            F gv = (F)0;
             if (d < D) {
-              const float gd = to_float(g_row[d]);
+              const F gd = to_float(g_row[d]);
               gv = gd * to_float(v_c[d]);
               if constexpr (kDv) atomicAdd(dv_c + d, aw * gd);
             }
@@ -406,24 +412,26 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* attn,
                         const void* grad, void* dvalue, void* dloc, void* dattn,
                         const int* hw, const int* level_start,
                         int L, int B, int S, int Lq, int M, int D, int P,
-                        int is_bf16, int device, void* stream) {
+                        int dtype, int device, void* stream) {
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_bwd_general_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const __nv_bfloat16*)value, (const float*)loc, (const __nv_bfloat16*)attn,
-        (const __nv_bfloat16*)grad, (float*)dvalue, (float*)dloc,
-        (__nv_bfloat16*)dattn, plan, B, S, Lq, M, D, P);
-  } else {
-    msda_bwd_general_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const float*)value, (const float*)loc, (const float*)attn,
-        (const float*)grad, (float*)dvalue, (float*)dloc, (float*)dattn,
-        plan, B, S, Lq, M, D, P);
+  const auto run = [&](auto kernel, auto t) {
+    using T = decltype(t);
+    using F = arith_t<T>;
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        (const T*)value, (const F*)loc, (const T*)attn, (const T*)grad, (F*)dvalue, (F*)dloc,
+        (T*)dattn, plan, B, S, Lq, M, D, P, nullptr, nullptr, nullptr);
+    return (int)cudaGetLastError();
+  };
+  switch (dtype) {
+    case kF32: return run(msda_bwd_general_kernel<float>, float{});
+    case kBF16: return run(msda_bwd_general_kernel<__nv_bfloat16>, __nv_bfloat16{});
+    case kF64: return run(msda_bwd_general_kernel<double>, double{});
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // The staged kernel's launch (see the note at the top), as msda_bwd's but
@@ -436,13 +444,14 @@ extern "C" int msda_bwd_staged(const void* value, const void* loc, const void* a
                                void* dattn,
                                const int* hw, const int* level_start,
                                int L, int B, int S, int Lq, int M, int D, int P, int smem,
-                               int is_bf16, int device, void* stream) {
+                               int dtype, int device, void* stream) {
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   LevelPlan plan;
   unsigned unused = 0;
   const int err = prepare(hw, level_start, L, D, P, device, 1, &plan, &unused);
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16
+  return dtype == kBF16
              ? launch_bwd_staged<__nv_bfloat16, __nv_bfloat16, Out::Model, Gate::Where>(
                    value, loc, attn, grad, dvalue, dsum, dloc, dattn, plan, B, S, Lq, M, D, P,
                    smem, s)

@@ -1,6 +1,7 @@
 // Helpers shared by the MSDA kernels (msda_fwd.cu, msda_bwd.cu,
-// msda_fac_fwd.cu, msda_fac_bwd.cu): the level plan passed by value, type
-// conversions, the bf16 rounding of the factorized kernels, the warp
+// msda_fac_fwd.cu, msda_fac_bwd.cu): the level plan passed by value, the
+// value types' codes and arithmetic types, type conversions, the bf16 and
+// fp16 rounding of the factorized kernels, the warp
 // reduction whose order the plain PyTorch versions repeat (`_warp_sum` in
 // ops/msda.py), the host-side checks and grid size of a launch, and the
 // shared-memory staging, lane layout and grids of the staged kernels.
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -30,28 +32,61 @@ struct LevelPlan {
   int start[kMaxLevels];
 };
 
+// The codes of the value and attention types at the C entries (the
+// wrappers' `TYPE_CODE` in ops/msda_cuda.py).
+enum TypeCode { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3 };
+
+// The arithmetic type of a value type: double for double (the plain
+// versions compute float64 inputs in float64), float otherwise (bf16 and
+// fp16 are widened exactly).
+template <typename T>
+struct Arith {
+  using type = float;
+};
+template <>
+struct Arith<double> {
+  using type = double;
+};
+template <typename T>
+using arith_t = typename Arith<T>::type;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ double to_float(double x) { return x; }  // widening is the identity
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(double* p, double x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
-// x rounded (to nearest even) to T and widened back; the identity for float.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same_v<T, float>) {
-    return x;
-  } else {
+// x rounded (to nearest even) to T and widened back; the identity for float
+// and double.
+template <typename T, typename F>
+__device__ __forceinline__ F round_to(F x) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     return __bfloat162float(__float2bfloat16(x));
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return __half2float(__float2half_rn(x));
+  } else {
+    return x;
   }
 }
 
-__device__ __forceinline__ float sign_of(float d) {
-  return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+// floor and |x| in the arithmetic type (floorf and fabsf for float).
+__device__ __forceinline__ float floor_of(float x) { return floorf(x); }
+__device__ __forceinline__ double floor_of(double x) { return ::floor(x); }
+__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_of(double x) { return ::fabs(x); }
+
+template <typename F>
+__device__ __forceinline__ F sign_of(F d) {
+  return d > (F)0 ? (F)1 : (d < (F)0 ? (F)-1 : (F)0);
 }
 
 // Sum over the 32 lanes by an xor butterfly 16, 8, 4, 2, 1; every lane ends
 // with the same value.
-__device__ __forceinline__ float warp_sum(float x) {
+template <typename F>
+__device__ __forceinline__ F warp_sum(F x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = x + __shfl_xor_sync(0xffffffffu, x, off);
   return x;

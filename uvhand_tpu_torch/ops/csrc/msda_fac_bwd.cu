@@ -30,7 +30,12 @@
 // (`ms_deform_attn_fac_torch_backward`) repeats that order, so dattn and
 // dloc agree with it bit for bit (the file is built with -fmad=false). dV
 // is NOT deterministic: float32 additions from many threads land on one
-// value row in no fixed order. Inputs and outputs as msda_bwd.cu's.
+// value row in no fixed order. Inputs and outputs as msda_bwd.cu's. The
+// general kernel also takes the types of msda_fac_fwd.cu's general kernel:
+// a float16 value (rounding at float16), a float64 value (float64
+// throughout, no rounding, float64 atomics into dV), and float32 attention
+// with a bf16 or fp16 value, read and widened; dattn is written in the
+// attention's type.
 //
 // Two kernels, chosen by the caller from the shapes (`staged_plan(...,
 // backward=True)` in ops/msda_cuda.py, the plan of the gather backward):
@@ -82,41 +87,46 @@ using namespace msda;
 // (rin, cin), and the level's cell of the (y0, x0) corner (0 when no corner
 // is inside; an in-map corner puts x0 in [-1, W) and y0 in [-1, H): no
 // overflow).
+template <typename F>
 struct FacSample {
-  float ay[2], sy[2], ax[2], sx[2];
+  F ay[2], sy[2], ax[2], sx[2];
   bool rin[2], cin[2];
   int cell0;
 };
 
-template <typename T>
-__device__ __forceinline__ FacSample fac_sample(float px, float py, int H, int W) {
-  FacSample s;
-  const float x0 = floorf(px);
-  const float y0 = floorf(py);
+template <typename T, typename F>
+__device__ __forceinline__ FacSample<F> fac_sample(F px, F py, int H, int W) {
+  FacSample<F> s;
+  const F x0 = floor_of(px);
+  const F y0 = floor_of(py);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float cy = y0 + (float)i;
-    const float dy = py - cy;
-    s.ay[i] = round_to<T>(1.0f - fabsf(dy));
-    s.sy[i] = fabsf(dy) < 1.0f ? sign_of(dy) : 0.0f;
-    s.rin[i] = cy >= 0.0f && cy < (float)H;
-    const float cx = x0 + (float)i;
-    const float dx = px - cx;
-    s.ax[i] = round_to<T>(1.0f - fabsf(dx));
-    s.sx[i] = fabsf(dx) < 1.0f ? sign_of(dx) : 0.0f;
-    s.cin[i] = cx >= 0.0f && cx < (float)W;
+    const F cy = y0 + (F)i;
+    const F dy = py - cy;
+    s.ay[i] = round_to<T>((F)1 - abs_of(dy));
+    s.sy[i] = abs_of(dy) < (F)1 ? sign_of(dy) : (F)0;
+    s.rin[i] = cy >= (F)0 && cy < (F)H;
+    const F cx = x0 + (F)i;
+    const F dx = px - cx;
+    s.ax[i] = round_to<T>((F)1 - abs_of(dx));
+    s.sx[i] = abs_of(dx) < (F)1 ? sign_of(dx) : (F)0;
+    s.cin[i] = cx >= (F)0 && cx < (F)W;
   }
   s.cell0 = (s.rin[0] || s.rin[1]) && (s.cin[0] || s.cin[1]) ? (int)y0 * W + (int)x0 : 0;
   return s;
 }
 
-template <typename T>
+// A is the attention's type (T, or float with a bf16 or fp16 value), read
+// and widened, and dattn's; F the arithmetic type (arith_t<T>): float, or
+// double for a double value.
+template <typename T, typename A>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_fac_bwd_general_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                            const T* __restrict__ attn, const T* __restrict__ grad,
-                            float* __restrict__ dvalue, float* __restrict__ dloc,
-                            T* __restrict__ dattn, LevelPlan plan,
+msda_fac_bwd_general_kernel(const T* __restrict__ value, const arith_t<T>* __restrict__ loc,
+                            const A* __restrict__ attn, const T* __restrict__ grad,
+                            arith_t<T>* __restrict__ dvalue, arith_t<T>* __restrict__ dloc,
+                            A* __restrict__ dattn, LevelPlan plan,
                             int B, int S, int Lq, int M, int D, int P) {
+  using F = arith_t<T>;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= (long long)B * Lq * M) return;  // uniform across the warp
@@ -124,39 +134,39 @@ msda_fac_bwd_general_kernel(const T* __restrict__ value, const float* __restrict
   const int b = (int)(row / ((long long)Lq * M));
   const int L = plan.n;
 
-  const float* loc_row = loc + row * (long long)(L * P * 2);
-  const T* attn_row = attn + row * (long long)(L * P);
+  const F* loc_row = loc + row * (long long)(L * P * 2);
+  const A* attn_row = attn + row * (long long)(L * P);
   const T* g_row = grad + row * (long long)D;
-  float* dloc_row = dloc + row * (long long)(L * P * 2);
-  T* dattn_row = dattn + row * (long long)(L * P);
+  F* dloc_row = dloc + row * (long long)(L * P * 2);
+  A* dattn_row = dattn + row * (long long)(L * P);
   const long long bm_off = (long long)b * S * M * D + (long long)m * D;
 
   for (int l = 0; l < L; ++l) {
     const int H = plan.h[l];
     const int W = plan.w[l];
-    const float fH = (float)H;
-    const float fW = (float)W;
+    const F fH = (F)H;
+    const F fW = (F)W;
     const long long level_off = bm_off + (long long)plan.start[l] * M * D;
     for (int p = 0; p < P; ++p) {
       const int k = l * P + p;
-      const float a = to_float(attn_row[k]);
+      const F a = to_float(attn_row[k]);
       // the sample's support (uniform across the warp)
-      const FacSample s = fac_sample<T>(loc_row[2 * k] * fW - 0.5f,
-                                        loc_row[2 * k + 1] * fH - 0.5f, H, W);
-      float daw = 0.0f, q[2] = {0.0f, 0.0f}, r[2] = {0.0f, 0.0f};
+      const FacSample<F> s = fac_sample<T, F>(loc_row[2 * k] * fW - (F)0.5,
+                                              loc_row[2 * k + 1] * fH - (F)0.5, H, W);
+      F daw = (F)0, q[2] = {(F)0, (F)0}, r[2] = {(F)0, (F)0};
       for (int d0 = 0; d0 < D; d0 += 32) {
         const int d = d0 + lane;
         // per-lane terms of this chunk's channel sums; 0 on lanes past D
-        float s_daw = 0.0f, s_q[2] = {0.0f, 0.0f}, s_r[2] = {0.0f, 0.0f};
+        F s_daw = (F)0, s_q[2] = {(F)0, (F)0}, s_r[2] = {(F)0, (F)0};
         if (d < D) {
-          const float g = to_float(g_row[d]);
+          const F g = to_float(g_row[d]);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             if (!s.cin[j]) continue;
-            const float axg = s.ax[j] * g;
-            const float h = round_to<T>(a * axg);
-            const float axg_r = round_to<T>(axg);
-            float t = 0.0f, v[2] = {0.0f, 0.0f};
+            const F axg = s.ax[j] * g;
+            const F h = round_to<T>(a * axg);
+            const F axg_r = round_to<T>(axg);
+            F t = (F)0, v[2] = {(F)0, (F)0};
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               if (!s.rin[i]) continue;
@@ -181,7 +191,7 @@ msda_fac_bwd_general_kernel(const T* __restrict__ value, const float* __restrict
         }
       }
       if (lane == 0) {
-        float gy = 0.0f, gx = 0.0f;
+        F gy = (F)0, gx = (F)0;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (s.rin[i]) gy = gy + s.sy[i] * round_to<T>(q[i]);
@@ -252,7 +262,7 @@ msda_fac_bwd_staged_kernel(const T* __restrict__ value, const float* __restrict_
       py = loc[row * (2LL * LP) + 2 * k + 1] * fH - 0.5f;
       a = to_float(attn[row * LP + k]);
     }
-    FacSample s = fac_sample<T>(px, py, H, W);
+    FacSample<float> s = fac_sample<T>(px, py, H, W);
     if (!act) s.rin[0] = s.rin[1] = s.cin[0] = s.cin[1] = false;  // reads and writes nothing
     // per-channel terms of the five sums: dattn, Q[0], Q[1] (over both
     // columns), and R[c] folded in the lane at once
@@ -357,24 +367,38 @@ extern "C" int msda_fac_bwd(const void* value, const void* loc, const void* attn
                             const void* grad, void* dvalue, void* dloc, void* dattn,
                             const int* hw, const int* level_start,
                             int L, int B, int S, int Lq, int M, int D, int P,
-                            int is_bf16, int device, void* stream) {
+                            int dtype, int attn_dtype, int device, void* stream) {
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_fac_bwd_general_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const __nv_bfloat16*)value, (const float*)loc, (const __nv_bfloat16*)attn,
-        (const __nv_bfloat16*)grad, (float*)dvalue, (float*)dloc,
-        (__nv_bfloat16*)dattn, plan, B, S, Lq, M, D, P);
-  } else {
-    msda_fac_bwd_general_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const float*)value, (const float*)loc, (const float*)attn,
-        (const float*)grad, (float*)dvalue, (float*)dloc, (float*)dattn,
-        plan, B, S, Lq, M, D, P);
+  const auto run = [&](auto kernel, auto t, auto at) {
+    using T = decltype(t);
+    using A = decltype(at);
+    using F = arith_t<T>;
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        (const T*)value, (const F*)loc, (const A*)attn, (const T*)grad, (F*)dvalue, (F*)dloc,
+        (A*)dattn, plan, B, S, Lq, M, D, P);
+    return (int)cudaGetLastError();
+  };
+  const bool own = attn_dtype == dtype;  // else float32 attention
+  if (!own && attn_dtype != kF32) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32: return own ? run(msda_fac_bwd_general_kernel<float, float>, float{}, float{})
+                          : (int)cudaErrorInvalidValue;
+    case kBF16:
+      return own ? run(msda_fac_bwd_general_kernel<__nv_bfloat16, __nv_bfloat16>,
+                       __nv_bfloat16{}, __nv_bfloat16{})
+                 : run(msda_fac_bwd_general_kernel<__nv_bfloat16, float>, __nv_bfloat16{},
+                       float{});
+    case kF16:
+      return own ? run(msda_fac_bwd_general_kernel<__half, __half>, __half{}, __half{})
+                 : run(msda_fac_bwd_general_kernel<__half, float>, __half{}, float{});
+    case kF64: return own ? run(msda_fac_bwd_general_kernel<double, double>, double{}, double{})
+                          : (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // The staged kernel's launch, with the arguments of msda_bwd_staged: it
@@ -386,13 +410,14 @@ extern "C" int msda_fac_bwd_staged(const void* value, const void* loc, const voi
                                    const void* grad, void* dvalue, void* dsum, void* dloc,
                                    void* dattn, const int* hw, const int* level_start,
                                    int L, int B, int S, int Lq, int M, int D, int P, int smem,
-                                   int is_bf16, int device, void* stream) {
+                                   int dtype, int attn_dtype, int device, void* stream) {
+  if ((dtype != kF32 && dtype != kBF16) || attn_dtype != dtype) return (int)cudaErrorInvalidValue;
   LevelPlan plan;
   unsigned unused = 0;
   const int err = prepare(hw, level_start, L, D, P, device, 1, &plan, &unused);
   if (err != 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_fac_bwd_staged<__nv_bfloat16>(value, loc, attn, grad, dvalue, dsum,
+  return dtype == kBF16 ? launch_fac_bwd_staged<__nv_bfloat16>(value, loc, attn, grad, dvalue, dsum,
                                                         dloc, dattn, plan, B, S, Lq, M, D, P,
                                                         smem, s)
                  : launch_fac_bwd_staged<float>(value, loc, attn, grad, dvalue, dvalue, dloc,

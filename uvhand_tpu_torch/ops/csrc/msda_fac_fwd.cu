@@ -27,7 +27,12 @@
 // and out accumulates in float32 over levels, points and columns, written
 // once in the value's type. In bf16 this is a different function from the
 // gather form, whose weights a * hy * hx stay float32. Inputs and output as
-// msda_fwd.cu's.
+// msda_fwd.cu's. The general kernel also takes a float16 value (rounding
+// at float16 where the bf16 kernel rounds at bf16), a float64 value
+// (float64 locations; every product and sum in float64, no rounding), and
+// with a bf16 or fp16 value float32 attention, which it reads and widens as
+// `_msda_pallas` does (msda_pallas.py:547-551); the staged kernel takes
+// float32 or bf16, one type for value and attention.
 //
 // Two kernels, chosen by the caller from the shapes (`staged_plan` in
 // ops/msda_cuda.py, the plan of the gather forward):
@@ -81,20 +86,20 @@ using namespace msda;
 // plain version's masked sum in value, NaN and infinity included: a zero
 // term differs at most in the sign of a zero, which a float32 sum that
 // starts at +0 does not keep.
-template <typename T>
-__device__ __forceinline__ void fac_point(float px, float py, float a, int H, int W,
-                                          float (&ay)[2], float (&awx)[2], int& code) {
-  const float x0 = floorf(px);
-  const float y0 = floorf(py);
+template <typename T, typename F>
+__device__ __forceinline__ void fac_point(F px, F py, F a, int H, int W, F (&ay)[2],
+                                          F (&awx)[2], int& code) {
+  const F x0 = floor_of(px);
+  const F y0 = floor_of(py);
   int flags = 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float cy = y0 + (float)i;
-    const float cx = x0 + (float)i;
-    const bool row = cy >= 0.0f && cy < (float)H;
-    const bool col = cx >= 0.0f && cx < (float)W;
-    ay[i] = row ? round_to<T>(1.0f - fabsf(py - cy)) : 0.0f;
-    awx[i] = col ? round_to<T>(a * (1.0f - fabsf(px - cx))) : 0.0f;
+    const F cy = y0 + (F)i;
+    const F cx = x0 + (F)i;
+    const bool row = cy >= (F)0 && cy < (F)H;
+    const bool col = cx >= (F)0 && cx < (F)W;
+    ay[i] = row ? round_to<T>((F)1 - abs_of(py - cy)) : (F)0;
+    awx[i] = col ? round_to<T>(a * ((F)1 - abs_of(px - cx))) : (F)0;
     flags |= (row ? 1 << i : 0) | (col ? 4 << i : 0);
   }
   const bool any = (flags & 3) && (flags & 12);
@@ -106,11 +111,15 @@ __device__ __forceinline__ bool corner_in(int f, int i, int j) {
   return ((f >> i) & 1) && ((f >> (2 + j)) & 1);
 }
 
-template <typename T>
+// A is the attention's type (T, or float with a bf16 or fp16 value), read
+// and widened as the TPU kernel widens it; F the arithmetic type
+// (arith_t<T>): float, or double for a double value.
+template <typename T, typename A>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_fac_fwd_general_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                            const T* __restrict__ attn, T* __restrict__ out, LevelPlan plan,
+msda_fac_fwd_general_kernel(const T* __restrict__ value, const arith_t<T>* __restrict__ loc,
+                            const A* __restrict__ attn, T* __restrict__ out, LevelPlan plan,
                             int B, int S, int Lq, int M, int D, int P) {
+  using F = arith_t<T>;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= (long long)B * Lq * M) return;
@@ -118,30 +127,30 @@ msda_fac_fwd_general_kernel(const T* __restrict__ value, const float* __restrict
   const int b = (int)(row / ((long long)Lq * M));
   const int L = plan.n;
 
-  const float* loc_row = loc + row * (long long)(L * P * 2);
-  const T* attn_row = attn + row * (long long)(L * P);
+  const F* loc_row = loc + row * (long long)(L * P * 2);
+  const A* attn_row = attn + row * (long long)(L * P);
   const T* value_bm = value + (long long)b * S * M * D + (long long)m * D;
   T* out_row = out + row * (long long)D;
 
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int d = d0 + lane;
     if (d >= D) break;  // the lanes past D have nothing to do and no warp sums
-    float acc = 0.0f;
+    F acc = (F)0;
     for (int l = 0; l < L; ++l) {
       const int H = plan.h[l];
       const int W = plan.w[l];
       const T* value_l = value_bm + (long long)plan.start[l] * M * D;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        float ay[2], awx[2];
+        F ay[2], awx[2];
         int code;
-        fac_point<T>(loc_row[2 * k] * (float)W - 0.5f, loc_row[2 * k + 1] * (float)H - 0.5f,
-                     to_float(attn_row[k]), H, W, ay, awx, code);
+        fac_point<T, F>(loc_row[2 * k] * (F)W - (F)0.5, loc_row[2 * k + 1] * (F)H - (F)0.5,
+                        to_float(attn_row[k]), H, W, ay, awx, code);
         const long long cell = code >> 4;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           if (!((code >> (2 + j)) & 1)) continue;
-          float t = 0.0f;
+          F t = (F)0;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             if (corner_in(code, i, j))
@@ -282,25 +291,42 @@ int dispatch_fac_fwd_staged(const void* value, const void* loc, const void* attn
 // Launch on `stream` (a cudaStream_t passed as a pointer) of card `device`,
 // with the arguments of msda_fwd. Returns the cudaError_t of the launch (0
 // when it was accepted).
+// `attn_dtype` is the attention's type code: the value's, or float32 with a
+// bfloat16 or float16 value.
 extern "C" int msda_fac_fwd(const void* value, const void* loc, const void* attn,
                             void* out, const int* hw, const int* level_start,
                             int L, int B, int S, int Lq, int M, int D, int P,
-                            int is_bf16, int device, void* stream) {
+                            int dtype, int attn_dtype, int device, void* stream) {
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_fac_fwd_general_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const __nv_bfloat16*)value, (const float*)loc,
-        (const __nv_bfloat16*)attn, (__nv_bfloat16*)out, plan, B, S, Lq, M, D, P);
-  } else {
-    msda_fac_fwd_general_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const float*)value, (const float*)loc, (const float*)attn,
-        (float*)out, plan, B, S, Lq, M, D, P);
+  const auto run = [&](auto kernel, auto t, auto at) {
+    using T = decltype(t);
+    using A = decltype(at);
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>((const T*)value, (const arith_t<T>*)loc,
+                                                  (const A*)attn, (T*)out, plan, B, S, Lq, M,
+                                                  D, P);
+    return (int)cudaGetLastError();
+  };
+  const bool own = attn_dtype == dtype;  // else float32 attention
+  if (!own && attn_dtype != kF32) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32: return own ? run(msda_fac_fwd_general_kernel<float, float>, float{}, float{})
+                          : (int)cudaErrorInvalidValue;
+    case kBF16:
+      return own ? run(msda_fac_fwd_general_kernel<__nv_bfloat16, __nv_bfloat16>,
+                       __nv_bfloat16{}, __nv_bfloat16{})
+                 : run(msda_fac_fwd_general_kernel<__nv_bfloat16, float>, __nv_bfloat16{},
+                       float{});
+    case kF16:
+      return own ? run(msda_fac_fwd_general_kernel<__half, __half>, __half{}, __half{})
+                 : run(msda_fac_fwd_general_kernel<__half, float>, __half{}, float{});
+    case kF64: return own ? run(msda_fac_fwd_general_kernel<double, double>, double{}, double{})
+                          : (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // The staged kernel's launch, with the arguments of msda_fwd_staged: `smem`
@@ -309,13 +335,14 @@ extern "C" int msda_fac_fwd(const void* value, const void* loc, const void* attn
 extern "C" int msda_fac_fwd_staged(const void* value, const void* loc, const void* attn,
                                    void* out, const int* hw, const int* level_start,
                                    int L, int B, int S, int Lq, int M, int D, int P, int smem,
-                                   int is_bf16, int device, void* stream) {
+                                   int dtype, int attn_dtype, int device, void* stream) {
+  if ((dtype != kF32 && dtype != kBF16) || attn_dtype != dtype) return (int)cudaErrorInvalidValue;
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch_fac_fwd_staged<__nv_bfloat16>(value, loc, attn, out, plan, B, S, Lq,
+  return dtype == kBF16 ? dispatch_fac_fwd_staged<__nv_bfloat16>(value, loc, attn, out, plan, B, S, Lq,
                                                           M, D, P, smem, device, s)
                  : dispatch_fac_fwd_staged<float>(value, loc, attn, out, plan, B, S, Lq, M, D,
                                                   P, smem, device, s);

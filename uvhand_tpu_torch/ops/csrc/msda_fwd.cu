@@ -12,7 +12,9 @@
 //
 // Inputs are read in place: value (B, S, M, D) and attention (B, Lq, M, L, P)
 // in float32 or bfloat16 (the same type for both), locations
-// (B, Lq, M, L, P, 2) in float32. Output (B, Lq, M*D) in the value's type.
+// (B, Lq, M, L, P, 2) in float32; the general kernel also takes a float64
+// value, attention and locations, and then computes in float64 throughout,
+// as the plain version does. Output (B, Lq, M*D) in the value's type.
 //
 // Two kernels, chosen by the caller from the shapes (`staged_plan` in
 // ops/msda_cuda.py):
@@ -68,11 +70,13 @@ namespace {
 
 using namespace msda;
 
+// F is the arithmetic type (arith_t<T>): float, or double for a double value.
 template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-msda_fwd_general_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+msda_fwd_general_kernel(const T* __restrict__ value, const arith_t<T>* __restrict__ loc,
                         const T* __restrict__ attn, T* __restrict__ out, LevelPlan plan,
                         int B, int S, int Lq, int M, int D, int P) {
+  using F = arith_t<T>;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= (long long)B * Lq * M) return;
@@ -80,7 +84,7 @@ msda_fwd_general_kernel(const T* __restrict__ value, const float* __restrict__ l
   const int b = (int)(row / ((long long)Lq * M));
   const int L = plan.n;
 
-  const float* loc_row = loc + row * (long long)(L * P * 2);
+  const F* loc_row = loc + row * (long long)(L * P * 2);
   const T* attn_row = attn + row * (long long)(L * P);
   const T* value_bm = value + (long long)b * S * M * D + (long long)m * D;
   T* out_row = out + row * (long long)D;
@@ -88,31 +92,31 @@ msda_fwd_general_kernel(const T* __restrict__ value, const float* __restrict__ l
   for (int d0 = 0; d0 < D; d0 += 32) {
     const int d = d0 + lane;
     const bool active = d < D;
-    float acc = 0.0f;
+    F acc = (F)0;
     for (int l = 0; l < L; ++l) {
       const int H = plan.h[l];
       const int W = plan.w[l];
-      const float fH = (float)H;
-      const float fW = (float)W;
+      const F fH = (F)H;
+      const F fW = (F)W;
       const T* value_l = value_bm + (long long)plan.start[l] * M * D;
       for (int p = 0; p < P; ++p) {
         const int k = l * P + p;
-        const float px = loc_row[2 * k] * fW - 0.5f;
-        const float py = loc_row[2 * k + 1] * fH - 0.5f;
-        const float a = to_float(attn_row[k]);
-        const float x0 = floorf(px);
-        const float y0 = floorf(py);
+        const F px = loc_row[2 * k] * fW - (F)0.5;
+        const F py = loc_row[2 * k + 1] * fH - (F)0.5;
+        const F a = to_float(attn_row[k]);
+        const F x0 = floor_of(px);
+        const F y0 = floor_of(py);
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
-          const float cy = y0 + (float)dy;
-          const float hy = 1.0f - fabsf(py - cy);
+          const F cy = y0 + (F)dy;
+          const F hy = (F)1 - abs_of(py - cy);
 #pragma unroll
           for (int dx = 0; dx < 2; ++dx) {
-            const float cx = x0 + (float)dx;
-            const float hx = 1.0f - fabsf(px - cx);
-            const bool valid = cx >= 0.0f && cx < fW && cy >= 0.0f && cy < fH;
+            const F cx = x0 + (F)dx;
+            const F hx = (F)1 - abs_of(px - cx);
+            const bool valid = cx >= (F)0 && cx < fW && cy >= (F)0 && cy < fH;
             if (valid && active) {
-              const float w = a * (hy * hx);
+              const F w = a * (hy * hx);
               const long long cell = (long long)cy * W + (long long)cx;
               acc = acc + w * to_float(value_l[cell * M * D + d]);
             }
@@ -270,22 +274,25 @@ int dispatch_fwd_staged(const void* value, const void* loc, const void* attn, vo
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
                         void* out, const int* hw, const int* level_start,
                         int L, int B, int S, int Lq, int M, int D, int P,
-                        int is_bf16, int device, void* stream) {
+                        int dtype, int device, void* stream) {
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    msda_fwd_general_kernel<__nv_bfloat16><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const __nv_bfloat16*)value, (const float*)loc,
-        (const __nv_bfloat16*)attn, (__nv_bfloat16*)out, plan, B, S, Lq, M, D, P);
-  } else {
-    msda_fwd_general_kernel<float><<<blocks, kWarpsPerBlock * 32, 0, s>>>(
-        (const float*)value, (const float*)loc, (const float*)attn,
-        (float*)out, plan, B, S, Lq, M, D, P);
+  const auto run = [&](auto kernel, auto t) {
+    using T = decltype(t);
+    kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        (const T*)value, (const arith_t<T>*)loc, (const T*)attn, (T*)out, plan, B, S, Lq, M, D,
+        P);
+    return (int)cudaGetLastError();
+  };
+  switch (dtype) {
+    case kF32: return run(msda_fwd_general_kernel<float>, float{});
+    case kBF16: return run(msda_fwd_general_kernel<__nv_bfloat16>, __nv_bfloat16{});
+    case kF64: return run(msda_fwd_general_kernel<double>, double{});
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // The staged kernel's launch, as msda_fwd's; `smem` is the slab's bytes
@@ -294,13 +301,14 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
 extern "C" int msda_fwd_staged(const void* value, const void* loc, const void* attn,
                                void* out, const int* hw, const int* level_start,
                                int L, int B, int S, int Lq, int M, int D, int P, int smem,
-                               int is_bf16, int device, void* stream) {
+                               int dtype, int device, void* stream) {
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   LevelPlan plan;
   unsigned blocks = 0;
   const int err = prepare(hw, level_start, L, D, P, device, (long long)B * Lq * M, &plan, &blocks);
   if (err != 0 || blocks == 0) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? dispatch_fwd_staged<__nv_bfloat16>(value, loc, attn, out, plan, B, S, Lq, M,
+  return dtype == kBF16 ? dispatch_fwd_staged<__nv_bfloat16>(value, loc, attn, out, plan, B, S, Lq, M,
                                                       D, P, smem, device, s)
                  : dispatch_fwd_staged<float>(value, loc, attn, out, plan, B, S, Lq, M, D, P,
                                               smem, device, s);

@@ -27,9 +27,10 @@ Two formulations of that function, as in the JAX package's TPU kernels:
 (`msda_cuda.py`) for a CUDA tensor and runs the plain versions for a CPU
 tensor; `impl="torch"` runs the plain versions on any device. Before a
 launch `kernel_inputs` brings the caller's tensors into the form the
-kernels take (float32 locations, contiguous tensors of one type, an
-aligned value) without changing the function, so the op takes on the card
-what it takes on the CPU. When a
+kernels take (locations in the arithmetic type, contiguous tensors in the
+types the kernels take, an aligned value) without changing the function,
+so the op takes on the card every input type it takes on the CPU (float32,
+bfloat16, float16, float64, attention of another type). When a
 gradient is needed the op goes through `MSDeformAttnFunction`, whose
 backward is the backward kernel or its plain version of the formulation
 its forward ran; autograd never differentiates a plain forward itself,
@@ -344,34 +345,36 @@ def kernel_inputs(value, sampling_locations, attention_weights, fac, grad_out=No
     """The op's inputs in the form the CUDA kernels take, for the function
     the plain versions compute on the caller's tensors -> (value, locations,
     attention, grad_out or None):
-      - locations in float32, as the plain versions compute them;
-      - value, attention and incoming gradient contiguous and in one type.
-        Attention of another type than a float32 value is made float32, as
-        the plain versions make it. With a bfloat16 value and attention of
-        another type, the gather form computes in float32 anyway, so the
-        value and gradient are widened and the kernels run in float32; the
-        factorized form rounds at the value's type and reads the attention
-        in it, so it refuses that case (a TypeError). A value of another
-        type than float32 or bfloat16 is left for the wrapper to refuse;
+      - locations in the plain versions' arithmetic type: float32, or
+        float64 for a float64 value;
+      - value and incoming gradient contiguous and in one type, the
+        attention in it too or, in the factorized form, in the arithmetic
+        type. The gather form computes a bfloat16 or float16 value in
+        float32, so a float16 value, or a bfloat16 one with attention of
+        another type, is widened (exactly) and the kernels run in float32;
+        a bfloat16 value with bfloat16 attention stays (the model paths'
+        staged kernels). The factorized form rounds at the value's type, so
+        the value keeps it, and attention of another type is made the
+        arithmetic type, which its general kernels read;
       - the value's data 16-byte aligned (the staged kernels copy it by
         16-byte chunks): a fresh copy, which the allocator aligns.
     Tensors already in that form come back as they are. The caller casts
     the results back to the caller's types."""
-    work = value.dtype
-    if attention_weights.dtype != value.dtype and value.dtype == torch.bfloat16:
-        if fac:
-            raise TypeError(
-                f"the factorized MSDA kernels round at the value's type ({value.dtype}) and "
-                f"read the attention in it: attention of type {attention_weights.dtype} "
-                f"is taken on the CPU only")
-        work = torch.float32
+    arith = torch.promote_types(value.dtype, torch.float32)
+    own = attention_weights.dtype == value.dtype
+    if fac:
+        work, attn_type = value.dtype, value.dtype if own else arith
+    else:
+        work = value.dtype if value.dtype == arith or (own and value.dtype == torch.bfloat16) \
+            else arith
+        attn_type = work
     value = value.to(work).contiguous()
     if value.data_ptr() % 16:
         value = value.clone()
     if grad_out is not None:
         grad_out = grad_out.to(work).contiguous()
-    return (value, sampling_locations.to(torch.float32).contiguous(),
-            attention_weights.to(work).contiguous(), grad_out)
+    return (value, sampling_locations.to(arith).contiguous(),
+            attention_weights.to(attn_type).contiguous(), grad_out)
 
 
 def _forward(value, spatial_shapes, loc, attn, impl, fac):

@@ -11,6 +11,10 @@
     value slab in shared memory (the backwards: one level of it), and a
     general kernel that gathers from global memory; `staged_plan` picks
     one from the shapes before the launch, the same plan for both forms.
+    The general kernels also take float64 (both forms) and float16 (the
+    factorized form) values, and, in the factorized form, float32
+    attention with a bfloat16 or float16 value; the staged ones take
+    float32 or bfloat16, one type for value and attention.
 
 and the research scripts' TPU kernels (`uvhand_tpu_torch/scripts/`):
   - `csrc/msda_bwd.cu`'s entry `msda_ablate_bwd` and `csrc/msda_onlyg.cu`
@@ -62,6 +66,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 #: the dynamic shared memory one block may opt into on an H100 (sm_90)
 SMEM_LIMIT = 232_448
+#: the C entries' codes of the value and attention types (`TypeCode` in
+#: csrc/msda_common.cuh)
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
+#: the value types the kernels take: the staged kernels (and the research
+#: kernels) float32 and bfloat16; the gather form's general kernels float64
+#: too; the factorized form's general kernels float16 too
+STAGED_TYPES = (torch.float32, torch.bfloat16)
+GATHER_TYPES = STAGED_TYPES + (torch.float64,)
+FAC_TYPES = GATHER_TYPES + (torch.float16,)
 
 
 class StagedPlan(NamedTuple):
@@ -84,7 +97,7 @@ def staged_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int, dtype: torch.
     level (S * D values); the backward one level of it a block, so its
     blocks all do the same work (Lq * P points each) and its shared memory
     is the largest level's value rows."""
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype not in STAGED_TYPES:
         return None
     size = 4 if dtype == torch.float32 else 2
     if D not in (8, 16, 32):
@@ -176,7 +189,9 @@ def library() -> ctypes.CDLL:
     lib.msda_bwd_staged.restype = ci
     for gather, fac in (("msda_fwd", "msda_fac_fwd"), ("msda_bwd", "msda_fac_bwd")):
         for suffix in ("", "_staged"):
-            getattr(lib, fac + suffix).argtypes = getattr(lib, gather + suffix).argtypes
+            # the factorized entries take the attention's type code after the value's
+            argtypes = getattr(lib, gather + suffix).argtypes
+            getattr(lib, fac + suffix).argtypes = argtypes[:-2] + [ci] + argtypes[-2:]
             getattr(lib, fac + suffix).restype = ci
     lib.msda_ablate_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
                                     ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
@@ -203,32 +218,29 @@ def ptxas_report() -> str:
     return path.read_text() if path.exists() else ""
 
 
-def _check(value, spatial_shapes, loc, attn, grad_out=None):
+def _check(value, spatial_shapes, loc, attn, grad_out=None, types=STAGED_TYPES, mixed=False):
     if value.dim() != 4:
         raise ValueError(f"value must be (B, S, M, D), got {tuple(value.shape)}")
     B, S, M, D = value.shape
     _check_samples(("value", value), spatial_shapes, loc, attn, B, M, S,
-                   [] if grad_out is None else [("grad_out", grad_out)])
+                   [] if grad_out is None else [("grad_out", grad_out)], types, mixed)
     if grad_out is not None and tuple(grad_out.shape) != (B, loc.shape[1], M * D):
         raise ValueError(f"grad_out must be {(B, loc.shape[1], M * D)}, got {tuple(grad_out.shape)}")
 
 
-def _check_samples(lead, spatial_shapes, loc, attn, B, M, S, more=()):
+def _check_samples(lead, spatial_shapes, loc, attn, B, M, S, more=(), types=STAGED_TYPES,
+                   mixed=False):
     """The checks every MSDA wrapper shares: `lead` (name, tensor) on the
-    card in float32 or bfloat16, the attention and `more` in its type, the
-    locations float32, all on one device and contiguous; S tokens in the
-    levels; locations (B, Lq, M, L, P, 2) and attention (B, Lq, M, L, P)."""
+    card in one of `types`, `more` in its type, the attention in its type
+    or, where `mixed`, float32 with a bfloat16 or float16 lead, the
+    locations float32 (float64 with a float64 lead), all on one device and
+    contiguous; S tokens in the levels; locations (B, Lq, M, L, P, 2) and
+    attention (B, Lq, M, L, P)."""
     lead_name, first = lead
     if not first.is_cuda:
         raise ValueError("the CUDA MSDA kernels take CUDA tensors only")
-    if first.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{lead_name} must be float32 or bfloat16, got {first.dtype}")
-    if loc.dtype != torch.float32:
-        raise TypeError(f"sampling locations must be float32, got {loc.dtype}")
+    check_types(lead, loc, attn, more, types, mixed)
     named = [lead, ("attention_weights", attn), *more]
-    for name, t in named[1:]:
-        if t.dtype != first.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != {lead_name} dtype {first.dtype}")
     for name, t in named + [("sampling_locations", loc)]:
         if t.device != first.device:
             raise ValueError(f"{name} is on {t.device}, {lead_name} on {first.device}")
@@ -242,6 +254,24 @@ def _check_samples(lead, spatial_shapes, loc, attn, B, M, S, more=()):
         raise ValueError(f"sampling_locations must be (B, Lq, M, L, P, 2), got {tuple(loc.shape)}")
     if tuple(attn.shape) != tuple(loc.shape[:5]):
         raise ValueError(f"attention_weights must be {tuple(loc.shape[:5])}, got {tuple(attn.shape)}")
+
+
+def check_types(lead, loc, attn, more=(), types=STAGED_TYPES, mixed=False):
+    """The type checks of `_check_samples` (see there), on any device."""
+    lead_name, first = lead
+    if first.dtype not in types:
+        raise TypeError(f"{lead_name} must be one of {', '.join(map(str, types))}, "
+                        f"got {first.dtype}")
+    loc_type = torch.float64 if first.dtype == torch.float64 else torch.float32
+    if loc.dtype != loc_type:
+        raise TypeError(f"sampling locations must be {loc_type}, got {loc.dtype}")
+    if attn.dtype != first.dtype and not (
+            mixed and attn.dtype == torch.float32
+            and first.dtype in (torch.bfloat16, torch.float16)):
+        raise TypeError(f"attention_weights dtype {attn.dtype} != {lead_name} dtype {first.dtype}")
+    for name, t in more:
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != {lead_name} dtype {first.dtype}")
 
 
 def _plan(spatial_shapes):
@@ -287,9 +317,16 @@ def _staged_args(value, plan):
     return (plan.smem,)
 
 
-def _launch_forward(entry, what, value, spatial_shapes, loc, attn, plan=None):
+def _type_args(value, attn, fac):
+    """The entries' type codes: the value's, and the factorized entries'
+    attention's after it."""
+    return (TYPE_CODE[value.dtype],) + ((TYPE_CODE[attn.dtype],) if fac else ())
+
+
+def _launch_forward(entry, what, value, spatial_shapes, loc, attn, plan=None, fac=False):
     """Launch a forward entry; `plan` (a StagedPlan) for a staged one."""
-    _check(value, spatial_shapes, loc, attn)
+    _check(value, spatial_shapes, loc, attn, types=FAC_TYPES if fac else GATHER_TYPES,
+           mixed=fac)
     B, S, M, D = value.shape
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     staged = _staged_args(value, plan)
@@ -299,17 +336,20 @@ def _launch_forward(entry, what, value, spatial_shapes, loc, attn, plan=None):
     stream = torch.cuda.current_stream(value.device).cuda_stream
     err = getattr(lib, entry)(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), hw, level_start,
-        L, B, S, Lq, M, D, P, *staged, int(value.dtype == torch.bfloat16), value.device.index,
+        L, B, S, Lq, M, D, P, *staged, *_type_args(value, attn, fac), value.device.index,
         stream)
     _raise_on(lib, err, what)
     return out
 
 
-def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, plan=None):
+def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, plan=None,
+                     fac=False):
     """Launch a backward entry; `plan` (a StagedPlan) for a staged one, which
     writes every dvalue row in the value's type itself. A general one adds
-    into a zeroed float32 dvalue, cast to the value's type afterwards."""
-    _check(value, spatial_shapes, loc, attn, grad_out)
+    into a zeroed dvalue in the arithmetic type (float32, or float64 for a
+    float64 value), cast to the value's type afterwards."""
+    _check(value, spatial_shapes, loc, attn, grad_out,
+           types=FAC_TYPES if fac else GATHER_TYPES, mixed=fac)
     B, S, M, D = value.shape
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     staged = _staged_args(value, plan)
@@ -321,7 +361,7 @@ def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, pl
         sums = [dvalue if value.dtype == torch.float32
                 else torch.empty_like(dvalue, dtype=torch.float32)]
     else:
-        dvalue = torch.zeros(B, S, M, D, dtype=torch.float32, device=value.device)
+        dvalue = torch.zeros(B, S, M, D, dtype=loc.dtype, device=value.device)
         sums = []
     dloc = torch.empty_like(loc)
     dattn = torch.empty_like(attn)
@@ -330,23 +370,23 @@ def _launch_backward(entry, what, value, spatial_shapes, loc, attn, grad_out, pl
     err = getattr(lib, entry)(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
         dvalue.data_ptr(), *(t.data_ptr() for t in sums), dloc.data_ptr(), dattn.data_ptr(),
-        hw, level_start, L, B, S, Lq, M, D, P, *staged, int(value.dtype == torch.bfloat16),
+        hw, level_start, L, B, S, Lq, M, D, P, *staged, *_type_args(value, attn, fac),
         value.device.index, stream)
     _raise_on(lib, err, what)
     return dvalue.to(value.dtype), dloc, dattn
 
 
-def _dispatch(launch, entries, counts, what, value, spatial_shapes, *args, kernel="auto",
-              backward=False):
+def _dispatch(launch, entries, counts, what, value, spatial_shapes, loc, attn, *args,
+              kernel="auto", backward=False, fac=False):
     """One launch of an op with a staged and a general kernel: the staged
-    one where `staged_plan` has a plan for these shapes, else the general
-    one (`kernel` 'staged' or 'general' picks one). `entries` and `counts`
-    are (general, staged)."""
-    plan = _pick(kernel, staged_plan(spatial_shapes, value.shape[-1], value.dtype,
-                                     backward=backward))
+    one where `staged_plan` has a plan for these shapes and the attention
+    is in the value's type, else the general one (`kernel` 'staged' or
+    'general' picks one). `entries` and `counts` are (general, staged)."""
+    plan = staged_plan(spatial_shapes, value.shape[-1], value.dtype, backward=backward)
+    plan = _pick(kernel, plan if attn.dtype == value.dtype else None)
     staged = plan is not None
     out = launch(entries[staged], ("staged " if staged else "") + what, value, spatial_shapes,
-                 *args, plan=plan)
+                 loc, attn, *args, plan=plan, fac=fac)
     counts[staged].launches += 1
     return out
 
@@ -361,8 +401,9 @@ def ms_deform_attn_cuda(
     """Launch the forward kernel on PyTorch's current stream: the staged one
     where `staged_plan` has a plan for these shapes, else the general one
     (`kernel` 'staged' or 'general' picks one, to hold them against each
-    other). Raises on any input the kernel does not take, and when the
-    launch is refused."""
+    other). Value and attention of one type of `GATHER_TYPES` (float64:
+    the general kernel, float64 locations). Raises on any input the kernel
+    does not take, and when the launch is refused."""
     out = _dispatch(_launch_forward, ("msda_fwd", "msda_fwd_staged"), (FWD_GENERAL, FWD_STAGED),
                     "forward", value, spatial_shapes, sampling_locations, attention_weights,
                     kernel=kernel)
@@ -384,9 +425,10 @@ def ms_deform_attn_backward_cuda(
     """Launch the backward kernel on PyTorch's current stream: the staged one
     where `staged_plan(..., backward=True)` has a plan, else the general one
     (`kernel` as for `ms_deform_attn_cuda`) -> (dvalue in the value's type,
-    dloc float32, dattn in the attention's type). dvalue is summed in
-    float32 by atomics and rounded once to the value's type. Raises on any
-    input the kernel does not take, and when the launch is refused."""
+    dloc in the locations' type, dattn in the attention's type). dvalue is
+    summed in float32 (float64 for a float64 value) by atomics and rounded
+    once to the value's type. Raises on any input the kernel does not take,
+    and when the launch is refused."""
     grads = _dispatch(_launch_backward, ("msda_bwd", "msda_bwd_staged"),
                       (BWD_GENERAL, BWD_STAGED), "backward", value, spatial_shapes,
                       sampling_locations, attention_weights, grad_out, kernel=kernel,
@@ -407,10 +449,13 @@ def ms_deform_attn_fac_cuda(
 ) -> torch.Tensor:
     """Launch the factorized forward kernel (`msda_fac_fwd.cu`) on
     PyTorch's current stream, staged or general as `ms_deform_attn_cuda`
-    chooses; as `ms_deform_attn_cuda` otherwise."""
+    chooses; as `ms_deform_attn_cuda` otherwise. The value may also be
+    float16 (`FAC_TYPES`), and with a bfloat16 or float16 value the
+    attention float32 (the general kernel, which widens it on read)."""
     out = _dispatch(_launch_forward, ("msda_fac_fwd", "msda_fac_fwd_staged"),
                     (FAC_FWD_GENERAL, FAC_FWD_STAGED), "factorized forward", value,
-                    spatial_shapes, sampling_locations, attention_weights, kernel=kernel)
+                    spatial_shapes, sampling_locations, attention_weights, kernel=kernel,
+                    fac=True)
     ms_deform_attn_fac_cuda.launches += 1
     return out
 
@@ -429,11 +474,12 @@ def ms_deform_attn_fac_backward_cuda(
     """Launch the factorized backward kernel (`msda_fac_bwd.cu`) on
     PyTorch's current stream, staged or general as
     `ms_deform_attn_backward_cuda` chooses; as it otherwise (dvalue summed
-    in float32 by atomics, not deterministic)."""
+    in float32, or float64, by atomics, not deterministic), with the types
+    of `ms_deform_attn_fac_cuda`."""
     grads = _dispatch(_launch_backward, ("msda_fac_bwd", "msda_fac_bwd_staged"),
                       (FAC_BWD_GENERAL, FAC_BWD_STAGED), "factorized backward", value,
                       spatial_shapes, sampling_locations, attention_weights, grad_out,
-                      kernel=kernel, backward=True)
+                      kernel=kernel, backward=True, fac=True)
     ms_deform_attn_fac_backward_cuda.launches += 1
     return grads
 

@@ -63,6 +63,17 @@ def scheduled(optimizer: torch.optim.Optimizer, schedule: Callable[[int], float]
     return torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: schedule(step) / lr)
 
 
+def set_schedule_step(scheduler: torch.optim.lr_scheduler.LambdaLR, step: int) -> None:
+    """Put a `scheduled` schedule at `step`, as after `step` updates (a
+    resumed run): each group's rate is its base rate times the schedule's
+    factor there, and the next `.step()` moves on to step + 1."""
+    scheduler.last_epoch = step
+    for group, base, factor in zip(scheduler.optimizer.param_groups, scheduler.base_lrs,
+                                   scheduler.lr_lambdas):
+        group["lr"] = base * factor(step)
+    scheduler._last_lr = [group["lr"] for group in scheduler.optimizer.param_groups]
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, as a 0-d tensor."""
     return torch.nn.utils.get_total_norm(list(tensors), norm_type=2.0)
