@@ -102,7 +102,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      --resume out/0` with the default metrics (the sequence pass
      included), and a `--bf16` epoch of 2 steps under UVHAND_MSDA_FAC=1;
      12 staged forward launches a batch, 12 + 12 a step, no other kernel;
-     the resumed eval equal to the in-process one; every score finite.
+     the resumed eval equal to the in-process one; every score finite; then
+     the CLI's default single-stage model with `--enc_lite --remat` and
+     `--two_stage --with_box_refine --bf16_params --sgd`, each an epoch of
+     2 steps (24 + 12 launches a step under remat) and a `--resume` eval
+     equal to its in-process one;
+  14. each model and training option at full width: single-stage (learned
+     queries, 2-d references), learned position encoding, no-aux, enc_lite
+     (hi_every 3 and 6: the low-resolution-only layers' calls take 261
+     queries against 1045 tokens, through the staged kernels), remat, bf16
+     parameters with stochastic rounding, SGD: 2 serving batches (12 staged
+     forward launches each) held end to end against the plain MSDA run, 2
+     train steps with exact launches (remat: 24 forward + 12 backward a
+     step; bf16 parameters stay bf16 and finite), and the device's busy
+     share of a profiled batch and step;
+  15. peak device memory of a full-width fp32 train step with and without
+     remat at B=16 and B=32.
+  Phases 3 and 3b also time the forward and backward kernels on one
+  enc_lite call (Lq 261, S 1045, B=16, float32) beside its bound.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -148,6 +165,8 @@ FP32_TRAIN_STEPS = 2  # fewer float32 steps, to leave time for the bf16 and FAC 
 MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 # level shapes of a 224x224 image: strides 8, 16, 32 and the extra stride-64 level
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
+# enc_lite's low-resolution-only layers: the queries of levels 1.. (S - 28*28)
+ENC_LITE_LQ = sum(h * w for h, w in LEVELS[1:])
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
@@ -291,6 +310,7 @@ def kernel_phase():
         # name, shape, loc range, dtype, timed
         ("encoder fp32", enc, (0.0, 1.0), torch.float32, True),
         ("decoder fp32", dec, (-1.0, 1.0), torch.float32, True),
+        ("enc_lite fp32", dict(enc, Lq=ENC_LITE_LQ), (0.0, 1.0), torch.float32, True),
         ("encoder bf16", enc, (0.0, 1.0), torch.bfloat16, True),
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
@@ -328,7 +348,7 @@ def kernel_phase():
                                      f"({name})")
             if dtype == torch.float32:
                 max_err[kind] = max(max_err[kind], err)
-        if plan is None and name.startswith(("encoder", "decoder")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -367,6 +387,7 @@ def backward_kernel_phase():
     cases = [
         ("encoder fp32", enc, (0.0, 1.0), torch.float32, True),
         ("decoder fp32", dec, (-1.0, 1.0), torch.float32, True),
+        ("enc_lite fp32", dict(enc, Lq=ENC_LITE_LQ), (0.0, 1.0), torch.float32, True),
         ("encoder bf16", enc, (0.0, 1.0), torch.bfloat16, True),
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
@@ -411,7 +432,7 @@ def backward_kernel_phase():
                 + f"; tol {TOL[dtype]:.0e} ok"
                 + (f" (plan: levels {plan.groups}, {plan.smem} B of shared memory)"
                    if kind == "staged" else ""))
-        if plan is None and name.startswith(("encoder", "decoder")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -839,10 +860,13 @@ def synthetic_batch(rng, bank: objects.ObjectBank, B: int) -> dict:
     }
 
 
+def build_model(**options):
+    """arctic_sf at full width (the defaults) on the card, seeded weights."""
+    return UVHandDETR(generator=torch.Generator().manual_seed(SEED), device="cuda", **options)
+
+
 def build_world(device, compute_dtype=torch.float32):
-    gen = torch.Generator().manual_seed(SEED)
-    # the default: full width
-    model = UVHandDETR(compute_dtype=compute_dtype, generator=gen, device=device)
+    model = build_model(compute_dtype=compute_dtype)
     world = (mano.synthetic_mano(0, True, device=device),
              mano.synthetic_mano(1, False, device=device),
              objects.synthetic_object_bank(2, device=device))
@@ -955,6 +979,8 @@ def e2e_phase(model, world, batch, kernel_rows, tag="fp32"):
             set_msda_impl(model, "auto")
     worst = 0.0
     for k in KEYS:
+        if out_p["stacked"][k] is None:  # the single-stage model has no keypoints
+            continue
         d = float((out_k["stacked"][k] - out_p["stacked"][k]).abs().max())
         worst = max(worst, d)
         log(f"[e2e] {tag} {k}: kernel vs plain max_abs_diff={d:.3e} (tol 1e-4)")
@@ -1117,9 +1143,12 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
         raise AssertionError("kernel and plain train passes disagree on gradients")
 
 
-def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN):
-    """The training path: make_fused_train_step with the CLI's defaults."""
-    opt = create_optimizer(model)  # lr 2e-4, backbone 2e-5, linear proj x0.1, wd 1e-4
+def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN, sgd=False):
+    """The training path: make_fused_train_step with the CLI's defaults
+    (AdamW, or SGD with `sgd`; bfloat16 parameters take the stochastic-
+    rounding optimizer, and must stay bfloat16 and finite)."""
+    # lr 2e-4, backbone 2e-5, linear proj x0.1, wd 1e-4
+    opt = create_optimizer(model, sgd=sgd, sr_seed=SEED)
     step = engine.make_fused_train_step(
         model, *world, opt, img_res=IMG_RES, clip_max_norm=0.1,
         generator=torch.Generator(device="cuda").manual_seed(SEED))
@@ -1154,6 +1183,11 @@ def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN):
                                  f"expected {expected(per_step)}")
         if not all(moved.values()):
             raise AssertionError(f"step {i}: a parameter group did not move: {moved}")
+        bad = [n for n, p in params.items()
+               if p.dtype != old[n].dtype or not bool(torch.isfinite(p).all())]
+        if bad:
+            raise AssertionError(f"{tag} step {i}: parameters changed type or are not "
+                                 f"finite: {bad[:3]}")
     counts = read_counts()
     log(f"[train] {tag} MSDA kernel launches over {len(batches)} steps: {json.dumps(counts)}")
     log(f"[train] {tag} last step's losses: " + json.dumps(vals))
@@ -1237,6 +1271,88 @@ def msda_device_ms(kernels):
     return ", ".join(f"{n} {ms:.3f} ({c})" for n, (ms, c) in sorted(msda.items()))
 
 
+# ------------------------------------------------------------ 14. model options
+
+#: the model and training options of arctic_sf's CLI, each at full width:
+#: (tag, UVHandDETR options, train-step options, launches per train step);
+#: no-aux, remat and sgd serve with the default model's forward (phase 6
+#: profiles it)
+OPTIONS = (
+    ("single-stage", dict(two_stage=False, with_box_refine=False), {}, TRAIN),
+    ("learned posenc", dict(position_embedding="learned"), {}, TRAIN),
+    ("no-aux", dict(aux_loss=False), {}, TRAIN),
+    ("enc_lite 3", dict(enc_lite=True, enc_lite_hi_every=3), {}, TRAIN),
+    ("enc_lite 6", dict(enc_lite=True, enc_lite_hi_every=6), {}, TRAIN),
+    # every layer's forward again in the backward
+    ("remat", dict(remat=True), {},
+     staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD})),
+    ("bf16 params", dict(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16), {}, TRAIN),
+    ("sgd", {}, dict(sgd=True), TRAIN),
+)
+OPTION_BATCHES, OPTION_STEPS = 2, 2
+
+
+def options_phase(world, batches, train_batches, card):
+    """Phase 14: each model and training option of arctic_sf at full width
+    (B=16, 224x224, 6+6 layers, d=256, 300 queries): 2 serving batches
+    (12 staged forward launches each, enc_lite's low-resolution-only layers
+    included) held end to end against the plain MSDA run of the same model
+    and batch, 2 train steps with exact launches (remat: 24 forward + 12
+    backward a step), and a profiled train step and, where the forward
+    differs from the default's, serving batch (device busy share). Returns
+    {tag: (serving launches, training launches)}."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for tag, options, train_options, per_step in OPTIONS:
+        model = build_model(**options)
+        rows, _, serve = main_path_phase(model, world, batches[:OPTION_BATCHES], card, tag)
+        e2e_phase(model, world, batches[0], rows[0], tag)
+        if tag not in ("no-aux", "remat", "sgd"):
+            step = engine.make_eval_step(model, *world, img_res=IMG_RES)
+            profile_line(f"{tag} serving batch", lambda: step(batches[1]))
+        _, train = train_phase(model, world, train_batches[:OPTION_STEPS], card, tag, per_step,
+                               **train_options)
+        opt = create_optimizer(model, sgd=train_options.get("sgd", False), sr_seed=SEED)
+        train_step = engine.make_fused_train_step(
+            model, *world, opt, img_res=IMG_RES,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        profile_line(f"{tag} train step", lambda: train_step(train_batches[1]))
+        counts[tag] = (serve, train)
+        del model, opt, train_step
+    log(f"[options] phase 14 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return counts
+
+
+def remat_memory_phase(world, rng, card):
+    """Peak device memory (`torch.cuda.max_memory_allocated`) of one full-width
+    fp32 train step with and without remat, at B=16 and B=32, and its time.
+    Every step must fit the card, and remat must lower the peak."""
+    for B in (BATCH, 2 * BATCH):
+        batch = synthetic_batch(rng, world[2], B)
+        peaks = {}
+        for remat in (False, True):
+            model = build_model(remat=remat)
+            step = engine.make_fused_train_step(
+                model, *world, create_optimizer(model), img_res=IMG_RES,
+                generator=torch.Generator(device="cuda").manual_seed(SEED))
+            step(batch)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            peak = peaks[remat] = torch.cuda.max_memory_allocated()
+            log(f"[remat-memory] B={B} remat={remat}: peak {peak / 2**30:.3f} GiB "
+                f"allocated ({(peak - base) / 2**30:.3f} GiB above the step's resident "
+                f"{base / 2**30:.3f} GiB), step {(time.perf_counter() - t0) * 1e3:.1f} ms "
+                f"({card})")
+            del model, step
+            torch.cuda.empty_cache()
+        if not peaks[True] < peaks[False]:
+            raise AssertionError(f"[remat-memory] B={B}: remat did not lower the peak {peaks}")
+
+
 # ------------------------------------------------------------ 13. the CLI
 
 #: the [cli] phase's synthetic ARCTIC root: 2 sequences x 17 frames x 2
@@ -1292,12 +1408,14 @@ def cli_root(path):
     return root
 
 
-def cli_argv(data_dir, out, *extra):
+def cli_argv(data_dir, out, *extra, two_stage=True):
     """The CLI's flags for arctic_sf at full width (the defaults: R50, d=256,
     8 heads, 6+6 layers, FFN 1024, 300 queries, 4 levels), two-stage with
-    box refinement, batches of 16, `--debug` steps."""
+    box refinement (or the CLI's default single-stage model), batches of 16,
+    `--debug` steps."""
+    model = ["--two_stage", "--with_box_refine"] if two_stage else []
     return ["--dataset_file", "arctic", "--coco_path", data_dir, "--output_dir", out,
-            "--two_stage", "--with_box_refine", "--batch_size", str(BATCH),
+            *model, "--batch_size", str(BATCH),
             "--val_batch_size", str(BATCH), "--epochs", "1", "--debug", "--num_workers", "8",
             "--seed", str(SEED), *extra]
 
@@ -1311,11 +1429,14 @@ def cli_phase(card):
       2. `--eval --resume out/0` with the default metrics: 4 batches and
          the sequence pass (ACC, MDev) over the 4 (sequence, view) groups;
       3. a `--bf16` epoch of 2 steps under UVHAND_MSDA_FAC=1, its eval 2
-         batches.
+         batches;
+      4-5. the CLI's default single-stage model with `--enc_lite --remat`:
+         an epoch of 2 steps and its eval, then `--eval --resume`;
+      6-7. `--two_stage --with_box_refine --bf16_params --sgd`: the same.
     Checks: 12 staged forward launches a batch and 12 + 12 a step (the
-    factorized kernels in run 3), no general or research launch; the
-    resumed eval's batch scores equal the in-process eval's; every score
-    finite; the loader's prefetched CUDA batches equal its host batches bit
+    factorized kernels in run 3; 24 + 12 under remat), no general or
+    research launch; each resumed eval's batch scores equal its in-process
+    eval's; every score finite; the loader's prefetched CUDA batches equal its host batches bit
     for bit. Prints the steady step ms, the wait for the loader a step,
     the loader's frames/s with no model, the eval batch ms and each run's
     wall clock. Returns the launches of each run."""
@@ -1392,11 +1513,36 @@ def cli_phase(card):
             expected(staged({"msda_fac_fwd": 2 * MSDA_PER_FORWARD,
                              "msda_fac_bwd": MSDA_PER_FORWARD}), 2))
 
+    remat = {"msda_fwd": 2 * MSDA_PER_FORWARD + MSDA_PER_FORWARD,
+             "msda_bwd": MSDA_PER_FORWARD}  # a step's and an eval batch's launches
+    option_runs = {}
+    for tag, flags, two_stage, per_step in (
+            ("single-stage enc_lite remat", ["--enc_lite", "--remat"], False, remat),
+            ("bf16-params sgd", ["--bf16_params", "--sgd"], True,
+             {"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD})):
+        out_dir = os.path.join(CLI_DIR, tag.replace(" ", "_"))
+        epoch = run(f"{tag} train epoch", cli_argv(
+            data_dir, out_dir, "--num_debug", "2", *flags, two_stage=two_stage),
+            expected(staged(per_step), 2))
+        resumed_run = run(f"{tag} eval --resume", cli_argv(
+            data_dir, out_dir + "_eval", "--num_debug", "2", "--eval", "--resume",
+            os.path.join(out_dir, "0"), *flags, two_stage=two_stage),
+            expected(SERVE, 2 + seq_batches))
+        option_runs[tag] = (epoch, resumed_run)
+
+    def same_scores(tag, in_process, resumed):
+        for k, v in in_process.items():
+            if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
+                raise AssertionError(f"[cli] {tag} {k}: resumed eval {resumed[k]} != "
+                                     f"in-process {v}")
+
     in_process = train["epochs"][0]["scores"]
     resumed = evald["scores"][0]
-    for k, v in in_process.items():
-        if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
-            raise AssertionError(f"[cli] {k}: resumed eval {resumed[k]} != in-process {v}")
+    same_scores("fp32", in_process, resumed)
+    for tag, (epoch, resumed_run) in option_runs.items():
+        same_scores(tag, epoch["epochs"][0]["scores"], resumed_run["scores"][0])
+        log(f"[cli] {tag}: losses {json.dumps(epoch['epochs'][0]['stats'])}, resumed scores "
+            f"(equal to the in-process eval's) {json.dumps(resumed_run['scores'][0])}")
     log(f"[cli] the resumed eval's batch scores equal the end-of-epoch eval's: "
         f"{json.dumps(in_process)}")
     log(f"[cli] resumed eval, default metrics (random weights): {json.dumps(resumed)}")
@@ -1405,7 +1551,10 @@ def cli_phase(card):
     scores = {**{f"train {k}": v for k, v in train["epochs"][0]["stats"].items()},
               **{f"eval {k}": v for k, v in resumed.items()},
               **{f"bf16 {k}": v for k, v in bf16["epochs"][0]["stats"].items()},
-              **{f"bf16 eval {k}": v for k, v in bf16["epochs"][0]["scores"].items()}}
+              **{f"bf16 eval {k}": v for k, v in bf16["epochs"][0]["scores"].items()},
+              **{f"{tag} {k}": v for tag, (epoch, resumed_run) in option_runs.items()
+                 for k, v in {**epoch["epochs"][0]["stats"],
+                              **resumed_run["scores"][0]}.items()}}
     bad = sorted(k for k, v in scores.items() if not np.isfinite(v))
     if bad or not {"acc/h", "acc/o", "mdev/h"} <= set(resumed):
         raise AssertionError(f"[cli] scores not finite or missing: {bad}")
@@ -1509,6 +1658,10 @@ def main() -> int:
     # 13. the port's CLI on a synthetic ARCTIC root on disk
     cli_runs = cli_phase(card)
 
+    # 14. the model and training options at full width; 15. remat's memory
+    option_counts = options_phase(world, batches, train_batches, card)
+    remat_memory_phase(world, rng, card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -1527,7 +1680,9 @@ def main() -> int:
         "13, the users' entry point): its fp32 epoch (msda_fwd_staged, msda_bwd_staged: 4 steps "
         "and 4 eval batches) and its bf16 FAC epoch (msda_fac_*_staged: 2 steps and 2 eval "
         "batches), and phase 3e's general paths' (msda_*_general: arctic_sf's shapes launch none "
-        "of them); launches_by_path gives every path's count")
+        "of them); launches_by_path gives every path's count (phase 14's options and the CLI's "
+        "option runs included); *_enc_lite_call: one float32 call of enc_lite's low-resolution-"
+        "only layers (Lq 261 against S 1045, B=16)")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -1545,16 +1700,23 @@ def main() -> int:
                 "fac_general": fac_general[name], "unprepared": unprepared[name],
                 "cli_fp32_train": cli_runs["fp32 train epoch"][name],
                 "cli_fp32_eval": cli_runs["fp32 eval --resume out/0"][name],
-                "cli_bf16_fac_train": cli_runs["bf16 FAC train epoch"][name]}
+                "cli_bf16_fac_train": cli_runs["bf16 FAC train epoch"][name],
+                **{f"cli_{tag}": n[name] for tag, n in cli_runs.items()
+                   if tag.startswith(("single-stage", "bf16-params"))},
+                **{f"serve_{tag}": n[0][name] for tag, n in option_counts.items()},
+                **{f"train_{tag}": n[1][name] for tag, n in option_counts.items()}}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
+        lite = timed_["enc_lite fp32"][kind]  # one enc_lite low-resolution-only call
         return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
                 "replaces": replaces, "launches": launches, "launches_by_path": by_path(
                     f"{op}_{kind}"), "dtype": "float32", "max_abs_err": errs[kind],
                 **per_call(timed_, "fp32", kind), "library_ms": None, "ms_bf16": bf16["ms"],
                 "device_ms_bf16": bf16["device_ms"], "plain_ms_bf16": bf16["plain_ms"],
-                "bound_ms_bf16": bf16["bound_ms"]}
+                "bound_ms_bf16": bf16["bound_ms"],
+                **{f"{k}_enc_lite_call": lite[k]
+                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
 
     def fac_row(op, kind, key, launches, replaces):
         fp32 = per_call(ftimed[key], "fp32", kind)

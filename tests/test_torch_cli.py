@@ -15,7 +15,14 @@
     CLI and through the JAX CLI on the same root, with the default metrics
     (the sequence metrics mdev/h, acc/h, acc/o included), give scores that
     agree within 1e-2 mm + 1e-4 relative (`tests/test_torch_eval.py`'s
-    tolerance; NaN where both are NaN).
+    tolerance; NaN where both are NaN); the same A/B for the default
+    single-stage model and for a checkpoint trained with `--bf16_params`
+    (at 128x128);
+  - the model and training options (`--remat`, `--enc_lite`, `--sgd`,
+    `--position_embedding learned`, `--no_aux_loss`) each train a step,
+    evaluate, and resume into `--eval`; `--two_stage` without
+    `--with_box_refine` raises as the JAX model fails; bfloat16 parameters
+    round-trip through a checkpoint with their optimizer state.
 """
 
 import json
@@ -58,8 +65,8 @@ def test_config_file_merges_as_the_jax_cli(tmp_path):
     cfg.write_text("custom_knob = 7\nlr = 9.9\nnested = dict(a=1, b=2)\n")
     args = get_args_parser().parse_args(
         ["--config_file", str(cfg), "--options", "custom_knob=8", "nested.b=3",
-         "--output_dir", str(tmp_path / "out"), "--sgd"])
-    with pytest.raises(SystemExit, match="--sgd"):  # stops after the merge
+         "--output_dir", str(tmp_path / "out"), "--use_dn"])
+    with pytest.raises(SystemExit, match="--use_dn"):  # stops after the merge
         main(args)
     raw = json.load(open(tmp_path / "out" / "config_args_raw.json"))
     assert raw["custom_knob"] == 8 and raw["nested"] == {"a": 1, "b": 3}
@@ -158,29 +165,22 @@ def test_a_resumed_schedule_continues_at_its_step():
 
 
 UNPORTED = {
-    "remat": ["--remat"], "enc_lite": ["--enc_lite"], "bf16_params": ["--bf16_params"],
-    "sgd": ["--sgd"], "use_dn": ["--use_dn"], "dino": ["--modelname", "dino"],
+    "use_dn": ["--use_dn"], "dino": ["--modelname", "dino"],
     "arctic_lstm": ["--method", "arctic_lstm"], "temporal_head": ["--temporal_head", "lstm"],
     "train_smoothnet": ["--train_smoothnet"], "extract": ["--extract"],
     "extraction_mode": ["--extraction_mode", "submit_pose"],
     "visualization": ["--visualization"], "native_loader": ["--native_loader", "fast"],
-    "learned_posenc": ["--position_embedding", "learned"],
-    "feature_type": ["--feature_type", "local_fm"], "no_aux_loss": ["--no_aux_loss"],
+    "feature_type": ["--feature_type", "local_fm"],
     "backbone": ["--backbone", "swin_L"], "mp": ["--mp", "2"], "world_size": ["--world_size", "2"],
     "assembly": ["--dataset_file", "AssemblyHands"], "h2o": ["--dataset_file", "H2O"],
     "fpha": ["--dataset_file", "FPHA"],
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED) + ["single_stage", "no_box_refine",
-                                                     "WORLD_SIZE"])
+@pytest.mark.parametrize("name", sorted(UNPORTED) + ["WORLD_SIZE"])
 def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path, monkeypatch):
     argv = ["--output_dir", str(tmp_path), "--device", "cpu", "--two_stage", "--with_box_refine"]
-    if name == "single_stage":
-        argv.remove("--two_stage")
-    elif name == "no_box_refine":
-        argv.remove("--with_box_refine")
-    elif name == "WORLD_SIZE":
+    if name == "WORLD_SIZE":
         monkeypatch.setenv("WORLD_SIZE", "2")
     else:
         argv += UNPORTED[name]
@@ -238,3 +238,105 @@ def test_port_cli_trains_and_its_checkpoint_evaluates_as_in_the_jax_cli(tmp_path
             assert ours[k] is None, k
         else:
             assert abs(ours[k] - v) <= 1e-2 + 1e-4 * abs(v), (k, ours[k], v)
+
+
+def test_two_stage_without_box_refine_raises_as_the_jax_model_fails(tmp_path):
+    argv = ["--output_dir", str(tmp_path), "--device", "cpu", "--two_stage"]
+    with pytest.raises(ValueError, match="two_stage=True with with_box_refine=False"):
+        main(get_args_parser().parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def small_root(tmp_path_factory):
+    data = tmp_path_factory.mktemp("data")
+    arctic.make_synthetic_root(str(data / "arctic"), num_seqs=1, frames=4, views=2, seed=0,
+                               image_hw=(150, 210),
+                               obj_bank=objects.synthetic_object_bank(2, device="cpu"))
+    return ["--dataset_file", "arctic", "--coco_path", str(data), *TINY, "--img_res", "128",
+            "--batch_size", "8", "--val_batch_size", "8", "--debug", "--num_debug", "1",
+            "--num_workers", "2", "--epochs", "1"]
+
+
+#: model and training options the CLI runs, as one `--debug` step and its eval
+OPTIONS = {
+    "remat_enc_lite": ["--remat", "--enc_lite", "--enc_lite_hi_every", "2", "--enc_layers",
+                       "2", "--dropout", "0.1"],
+    "sgd_learned_posenc_no_aux": ["--two_stage", "--with_box_refine", "--sgd",
+                                  "--position_embedding", "learned", "--no_aux_loss"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIONS))
+def test_the_model_options_train_and_evaluate(name, small_root, tmp_path):
+    """Each option that used to exit runs a train step and the epoch's eval;
+    its checkpoint resumes into `--eval`."""
+    out = tmp_path / "out"
+    argv = small_root + OPTIONS[name]
+    res = main(get_args_parser().parse_args(argv + ["--output_dir", str(out), "--device",
+                                                    "cpu"]))
+    epoch = res["epochs"][0]
+    assert np.isfinite(epoch["stats"]["loss"]) and epoch["stats"]["grad_norm"] > 0
+    assert {"aae", "mpjpe/ra/h"} <= set(epoch["scores"])
+    ev = main(get_args_parser().parse_args(argv + [
+        "--output_dir", str(tmp_path / "ev"), "--device", "cpu", "--eval", "--resume",
+        str(out / "0"), "--eval_metrics", "aae"]))
+    assert np.isfinite(ev["scores"][0]["aae"])
+
+
+@pytest.mark.parametrize("model", ["single_stage", "bf16_params"])
+def test_the_jax_cli_evaluates_the_port_clis_new_checkpoints(model, small_root, tmp_path):
+    """The port CLI trains one `--debug` step of the default (single-stage)
+    model, or of the two-stage one with bfloat16 parameters (written widened
+    to float32); the port CLI and the JAX CLI then evaluate its
+    checkpoint.pth in float32 with the default metrics, within the A/B's
+    1e-2 mm + 1e-4 relative."""
+    flags = [] if model == "single_stage" else ["--two_stage", "--with_box_refine"]
+    out = tmp_path / "out"
+    train = flags + (["--bf16_params"] if model == "bf16_params" else [])
+    res = main(get_args_parser().parse_args(small_root + train + ["--output_dir", str(out),
+                                                                  "--device", "cpu"]))
+    assert np.isfinite(res["epochs"][0]["stats"]["loss"])
+    saved = torch.load(out / "0" / "checkpoint.pth", weights_only=False)
+    assert all(v.dtype != torch.bfloat16 for v in saved["model"].values())
+    if model == "bf16_params":  # the optimizer's float32 state and step are saved
+        assert saved["optimizer"]["param_groups"][0]["sr_step"] == 1
+        assert all(v.dtype == torch.float32 for st in saved["optimizer"]["state"].values()
+                   for v in st.values() if isinstance(v, torch.Tensor))
+    resume = flags + ["--eval", "--resume", str(out / "0" / "checkpoint.pth")]
+    main(get_args_parser().parse_args(small_root + resume + [
+        "--output_dir", str(tmp_path / "ev"), "--device", "cpu"]))
+    jax_main(jax_parser().parse_args(small_root + resume + ["--output_dir",
+                                                            str(tmp_path / "jev")]))
+    ours, ref = last_scores(tmp_path / "ev" / "results.txt"), last_scores(
+        tmp_path / "jev" / "results.txt")
+    assert sorted(ours) == sorted(ref) and {"mdev/h", "acc/h", "aae"} <= set(ours)
+    for k, v in ref.items():
+        if v is None:
+            assert ours[k] is None, k
+        else:
+            assert abs(ours[k] - v) <= 1e-2 + 1e-4 * abs(v), (k, ours[k], v)
+
+
+def test_bf16_parameter_checkpoint_round_trip(tmp_path):
+    """bfloat16 parameters are written as float32 and narrowed back exactly;
+    the optimizer's float32 moments and stochastic-rounding step resume."""
+    model = UVHandDETR(num_queries=4, num_encoder_layers=1, num_decoder_layers=1, d_model=32,
+                       n_heads=4, dim_feedforward=32, param_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0), device="cpu")
+    opt = create_optimizer(model)
+    one_update(model, opt)
+    path = ckpt.save_checkpoint(str(tmp_path), 0, model, opt, step=1)
+    fresh = UVHandDETR(num_queries=4, num_encoder_layers=1, num_decoder_layers=1, d_model=32,
+                       n_heads=4, dim_feedforward=32, param_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(1), device="cpu")
+    fresh_opt = create_optimizer(fresh)
+    assert ckpt.load_checkpoint(path, fresh, fresh_opt)["optimizer_restored"]
+    for (k, a), b in zip(model.state_dict().items(), fresh.state_dict().values()):
+        assert b.dtype == torch.bfloat16 and torch.equal(a, b), k
+    assert fresh_opt.param_groups[0]["sr_step"] == 1
+    copies = [[c for g in o.param_groups for c in g["params"]] for o in (opt, fresh_opt)]
+    for p, q in zip(*copies):  # the float32 copies hold the state
+        assert opt.state[p] and fresh_opt.state[q].keys() == opt.state[p].keys()
+        for k, v in opt.state[p].items():
+            assert torch.as_tensor(v).dtype == torch.float32
+            assert torch.equal(torch.as_tensor(v), torch.as_tensor(fresh_opt.state[q][k]))

@@ -602,3 +602,83 @@ def test_research_wrappers_reject_what_the_kernels_do_not_take(cuda):
         msda_cuda.take_along_axis_cuda(x, idx[:8].contiguous(), 1)
     with pytest.raises(ValueError, match="last two axes"):
         msda_cuda.take_along_axis_cuda(x[None].contiguous(), idx[None].contiguous(), 0)
+
+
+@pytest.mark.cuda
+def test_enc_lite_encoder_call_takes_the_staged_kernels(cuda):
+    """An enc_lite low-resolution-only layer's MSDA call: the 261 queries of
+    levels 1.. against all 1045 tokens of arctic_sf's levels, forward and
+    backward, through the staged kernels, equal to the plain versions."""
+    shapes = CASES["encoder"][5]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    value = torch.randn(2, 1045, 8, 32, generator=gen, device=cuda, requires_grad=True)
+    loc = torch.rand(2, 261, 8, 4, 4, 2, generator=gen, device=cuda, requires_grad=True)
+    attn = torch.randn(2, 261, 8, 16, generator=gen, device=cuda).softmax(-1).view(
+        2, 261, 8, 4, 4).requires_grad_()
+    grad = torch.randn(2, 261, 256, generator=gen, device=cuda)
+    before = (msda_cuda.FWD_STAGED.launches, msda_cuda.BWD_STAGED.launches,
+              msda_cuda.FWD_GENERAL.launches, msda_cuda.BWD_GENERAL.launches)
+    out = ms_deform_attn(value, shapes, loc, attn)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    after = (msda_cuda.FWD_STAGED.launches, msda_cuda.BWD_STAGED.launches,
+             msda_cuda.FWD_GENERAL.launches, msda_cuda.BWD_GENERAL.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+    with torch.no_grad():
+        ref = ms_deform_attn_torch(value, shapes, loc, attn)
+        refs = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    assert torch.equal(out.detach(), ref)
+    for got, want in zip((value.grad, loc.grad, attn.grad), refs):
+        assert (got - want).abs().max().item() <= TOL[torch.float32] * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_remat_train_step_gradients_equal_the_plain_step(cuda, tmp_path):
+    """A train pass of a small model (dropout 0.1, feature mask 0.3) with
+    remat and without, from the same weights and generator seed: the same
+    losses, the generator at the same state after, every gradient outside
+    the backbone within 1e-3 of its max and the backbone's within 1e-3 in
+    relative L2 error (the backward kernel's float32 dvalue is summed by
+    atomics in no fixed order and cuDNN's weight gradients are not
+    bit-repeatable; 50 random ResNet layers carry that to single elements
+    of the backbone's gradients; a recompute that drew other dropout masks
+    moves the gradients by their own size), and remat's launches: each
+    layer's forward kernel twice, its backward once."""
+    from uvhand_tpu_torch import engine
+    from uvhand_tpu_torch.data import arctic
+    from uvhand_tpu_torch.geometry import mano, objects
+    from uvhand_tpu_torch.models.detr import UVHandDETR
+
+    bank = objects.synthetic_object_bank(2, device="cpu")
+    arctic.make_synthetic_root(str(tmp_path / "arctic"), num_seqs=1, frames=2, views=1,
+                               obj_bank=bank)
+    ds = arctic.ArcticDataset(str(tmp_path / "arctic"), "p1", "train", aug=False,
+                              kp3d_cano=bank.kp_bottom.numpy(), img_res=128)
+    batch = engine.to_device(arctic.collate([ds[0], ds[1]]), cuda, engine.TRAIN_KEYS)
+    world = (mano.synthetic_mano(0, True, device=cuda), mano.synthetic_mano(1, False, device=cuda),
+             objects.synthetic_object_bank(2, device=cuda))
+    runs = {}
+    for remat in (False, True):
+        model = UVHandDETR(num_queries=12, num_encoder_layers=2, num_decoder_layers=2,
+                           d_model=64, n_heads=4, dim_feedforward=128, remat=remat,
+                           generator=torch.Generator().manual_seed(0), device=cuda).train()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        before = (msda_cuda.FWD_STAGED.launches, msda_cuda.BWD_STAGED.launches)
+        total, ld = engine.make_loss_fn(model, *world, img_res=128.0)(batch, gen)
+        total.backward()
+        torch.cuda.synchronize()
+        launches = (msda_cuda.FWD_STAGED.launches - before[0],
+                    msda_cuda.BWD_STAGED.launches - before[1])
+        runs[remat] = ({k: float(v.detach()) for k, v in ld.items()},
+                       {n: p.grad for n, p in model.named_parameters()}, gen.get_state(),
+                       launches)
+    (ld0, g0, s0, n0), (ld1, g1, s1, n1) = runs[False], runs[True]
+    assert n0 == (4, 4) and n1 == (8, 4)
+    assert ld0 == ld1 and torch.equal(s0, s1)
+    backbone = [n for n in g0 if n.startswith("backbone.")]
+    for n, g in g0.items():
+        if n not in backbone:
+            err = (g1[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            assert err <= 1e-3, (n, err)
+    l2 = sum(((g1[n] - g0[n]).double() ** 2).sum().item() for n in backbone)
+    assert (l2 / sum((g0[n].double() ** 2).sum().item() for n in backbone)) ** 0.5 <= 1e-3

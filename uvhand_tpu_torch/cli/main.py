@@ -8,6 +8,13 @@ argparse chain), the ARCTIC single-frame route:
       --setup p1 --coco_path data --output_dir exps/run1 --two_stage \
       --with_box_refine ...
 
+The model options of the JAX CLI all run: the single-stage model (the
+default, without `--two_stage`), `--with_box_refine`, `--position_embedding
+learned`, `--no_aux_loss`, `--enc_lite` / `--enc_lite_hi_every`, `--remat`,
+`--bf16`, `--bf16_params` (bfloat16 parameters with stochastic rounding;
+implies `--bf16`) and `--sgd`. `--two_stage` without `--with_box_refine` is
+a model the JAX package cannot build either: it raises a ValueError.
+
 It reads ARCTIC from `{coco_path}/{dataset_file}` (`data/arctic.py`),
 batches it (`data/loader.py`), trains with a checkpoint each epoch
 (`train/checkpoint.py`), resumes (`--resume` a checkpoint directory or a
@@ -207,10 +214,6 @@ def get_args_parser():
 
 UNPORTED = (
     # (is the option given?, what it is, its ROADMAP Queue 1 item)
-    (lambda a: a.remat, "--remat", "item 2 (main-path modes)"),
-    (lambda a: a.enc_lite, "--enc_lite", "item 2 (main-path modes)"),
-    (lambda a: a.bf16_params, "--bf16_params", "item 2 (main-path modes)"),
-    (lambda a: a.sgd, "--sgd", "item 2 (main-path modes)"),
     (lambda a: a.use_dn or a.modelname == "dino", "--use_dn / --modelname dino",
      "item 8 (DINO)"),
     (lambda a: a.method == "arctic_lstm", "--method arctic_lstm", "item 9 (temporal)"),
@@ -222,13 +225,8 @@ UNPORTED = (
     (lambda a: a.visualization, "--visualization", "item 12 (evaluation/visualize.py)"),
     (lambda a: a.native_loader != "off", "--native_loader on|fast",
      "item 4 (the native image path)"),
-    (lambda a: a.position_embedding != "sine", "--position_embedding learned",
-     "item 7 (model options)"),
     (lambda a: a.feature_type != "origin", "--feature_type global_fm|local_fm",
-     "item 7 (model options)"),
-    (lambda a: not (a.two_stage and a.with_box_refine),
-     "a model without --two_stage --with_box_refine", "item 7 (model options)"),
-    (lambda a: not a.aux_loss, "--no_aux_loss", "item 7 (model options)"),
+     "item 12 (cli/extract_features.py, which writes the features)"),
     (lambda a: a.backbone != "resnet50", "--backbone other than resnet50",
      "items 8 and 10 (ConvNeXt, Swin-L)"),
     (lambda a: a.mp > 1, "--mp > 1", "item 6 (multi-GPU)"),
@@ -277,7 +275,8 @@ def build_world(args, device):
 
 def build_model(args, device):
     """The arctic_sf model of `args` on `device`, its weights drawn from a
-    torch.Generator seeded with `--seed`."""
+    torch.Generator seeded with `--seed`. `--bf16_params` implies the bf16
+    compute mode, as in the JAX CLI."""
     from ..models.detr import UVHandDETR
 
     return UVHandDETR(
@@ -285,8 +284,11 @@ def build_model(args, device):
         num_encoder_layers=args.enc_layers, num_decoder_layers=args.dec_layers,
         dim_feedforward=args.dim_feedforward, num_feature_levels=args.num_feature_levels,
         dec_n_points=args.dec_n_points, enc_n_points=args.enc_n_points,
-        dropout=args.dropout,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        dropout=args.dropout, two_stage=args.two_stage, with_box_refine=args.with_box_refine,
+        aux_loss=args.aux_loss, position_embedding=args.position_embedding,
+        enc_lite=args.enc_lite, enc_lite_hi_every=args.enc_lite_hi_every, remat=args.remat,
+        compute_dtype=torch.bfloat16 if (args.bf16 or args.bf16_params) else torch.float32,
+        param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
         generator=torch.Generator().manual_seed(args.seed), device=device)
 
 
@@ -357,7 +359,8 @@ def main(args) -> dict:
 
     optimizer = create_optimizer(model, lr=args.lr, lr_backbone=args.lr_backbone,
                                  lr_linear_proj_mult=args.lr_linear_proj_mult,
-                                 weight_decay=args.weight_decay)
+                                 weight_decay=args.weight_decay, sgd=args.sgd,
+                                 sr_seed=args.seed)
     steps_per_epoch = max(len(dl_train), 1)
     if args.onecyclelr:
         sched = onecycle_schedule(args.lr, steps_per_epoch * 32)  # deformable_detr's 32

@@ -32,7 +32,7 @@ from .evaluation.decode import decode_predictions
 from .evaluation.mdev import eval_motion_deviation
 from .evaluation.metrics import eval_acc_pose, measure_error
 from .losses.criterion import arctic_criterion, select_queries
-from .train.state import clip_by_global_norm_, global_norm
+from .train.state import StochasticRounding, clip_by_global_norm_, global_norm
 from .utils.logging import MetricLogger
 from .utils.tools import arctic_smoothing
 
@@ -77,7 +77,8 @@ def to_device(batch: Dict[str, np.ndarray], device, keys=EVAL_KEYS) -> Dict[str,
 def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weights=None,
                  cost_class: float = 1.5, cost_keypoint: float = 4.0, preprocess: bool = True):
     """-> loss_fn(batch of tensors, generator) -> (total, loss dict): the
-    training objective. The GT preprocessing carries no gradient.
+    training objective (the criterion reads from the outputs whether the
+    model is single-stage). The GT preprocessing carries no gradient.
     `preprocess=False` reads processed targets from `batch["targets"]`."""
 
     def loss_fn(batch, generator):
@@ -109,16 +110,21 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
     device, seeded 0, when none is given). `grad_norm` is the global norm of
     the raw gradients, taken before the clip. Every parameter gets a
     gradient, zero where the loss does not reach it, so AdamW decays all of
-    them as optax does. A learning-rate schedule is stepped by the caller
-    after each step (`train.state.scheduled`). The stages are profiler
-    ranges named in `TRAIN_STAGES`."""
+    them as optax does. With bfloat16 parameters (the optimizer is a
+    `train.state.StochasticRounding`) the gradients are widened to float32
+    before the norm, the clip and the update, as the JAX package's
+    `float32_optimizer_state` does. A learning-rate schedule is stepped by
+    the caller after each step (`train.state.scheduled`). The stages are
+    profiler ranges named in `TRAIN_STAGES`."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     loss_fn = make_loss_fn(model, mano_r, mano_l, obj_bank, img_res=img_res, weights=weights,
                            cost_class=cost_class, cost_keypoint=cost_keypoint,
                            preprocess=preprocess)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    float32_update = isinstance(optimizer, StochasticRounding)
+    params = (optimizer.bf16_params if float32_update
+              else [p for group in optimizer.param_groups for p in group["params"]])
 
     def step(batch):
         if preprocess:
@@ -132,11 +138,14 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            grads = [p.grad for p in params]
+            grads = [p.grad.float() if float32_update else p.grad for p in params]
             norm = global_norm(grads)
             if clip_max_norm > 0:
                 clip_by_global_norm_(grads, clip_max_norm, norm)
-            optimizer.step()
+            if float32_update:
+                optimizer.step(grads=grads)
+            else:
+                optimizer.step()
         loss_dict = {k: v.detach() for k, v in loss_dict.items()}
         loss_dict["grad_norm"] = norm
         return loss_dict
@@ -207,7 +216,7 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
         batch = to_device(batch, device)
         targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
         outputs = model(batch["images"])
-        last = {k: v[-1] for k, v in outputs["stacked"].items()}
+        last = {k: v[-1] for k, v in outputs["stacked"].items() if v is not None}
         pred = decode_predictions(select_queries(last), targets, mano_r, mano_l,
                                   obj_bank, img_res)
         if smooth_iter > 0:
@@ -250,7 +259,8 @@ def make_sequence_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 22
         batch = to_device(batch, device)
         targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
         outputs = model(batch["images"])
-        selected = select_queries({k: v[-1] for k, v in outputs["stacked"].items()})
+        selected = select_queries({k: v[-1] for k, v in outputs["stacked"].items()
+                                   if v is not None})
         pred = decode_predictions(selected, targets, mano_r, mano_l, obj_bank, img_res)
         return ({k: pred[k] for k in SEQ_PRED_KEYS},
                 {k: targets[k] for k in SEQ_TARGET_KEYS})

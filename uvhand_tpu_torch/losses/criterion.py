@@ -1,12 +1,15 @@
 """ARCTIC DETR criterion and query selection.
 
 Port of `uvhand_tpu/losses/criterion.py` (the reference's
-`SetArcticCriterion` and `compute_small_loss` of `loss_arctic_sf.py`) for
-the two-stage model with box refinement: Hungarian-matched focal class loss
-and hand/object keypoint L1 for every decoder layer and for the encoder's
-interm outputs, and the hand/object parameter, keypoint and contact losses
-of the queries each layer selects. The denoising (DINO) and temporal
-branches are not ported.
+`SetArcticCriterion` and `compute_small_loss` of `loss_arctic_sf.py`):
+Hungarian-matched focal class loss and hand/object keypoint L1 for every
+decoder layer and for the encoder's interm outputs, and the hand/object
+parameter, keypoint and contact losses of the queries each layer selects.
+For the single-stage model (its outputs carry no keypoints and no interm
+outputs, the JAX package's `two_stage=False`) the matching is by class
+alone and there is neither a keypoint loss nor an interm term. Every layer of `stacked` is summed whether or not
+the model was built with `aux_loss`, as in the JAX package. The denoising
+(DINO) and temporal branches are not ported.
 
 The JAX package vmaps the small loss over the decoder layers; here a Python
 loop over layers calls it once per layer, so every reduction in it -- the
@@ -280,8 +283,9 @@ def arctic_criterion(
     cost_class: float = 1.5,
     cost_keypoint: float = 4.0,
 ):
-    """-> (total loss, loss dict) over every decoder layer and the interm
-    outputs of the two-stage model."""
+    """-> (total loss, loss dict) over every decoder layer and, where the
+    model gives them, the interm outputs. The keypoint terms are taken where
+    the outputs hold keypoints (the two-stage model's)."""
     if weights is None:
         weights = DEFAULT_LOSS_WEIGHTS
     st = outputs["stacked"]
@@ -297,15 +301,22 @@ def arctic_criterion(
     def tile(x):
         return x[None].expand((L,) + x.shape).reshape((L * B,) + x.shape[1:])
 
+    def fold(x):
+        return x.reshape(L * B, *x.shape[2:])
+
+    # the single-stage model has no keypoint outputs: matched by class alone
+    two_stage = st["pred_hand_key"] is not None
+    keys = (fold(st["pred_hand_key"]), fold(st["pred_obj_key"])) if two_stage else (None, None)
     assign_all = arctic_match(
-        st["pred_logits"].reshape(L * B, *st["pred_logits"].shape[2:]),
-        st["pred_hand_key"].reshape(L * B, *st["pred_hand_key"].shape[2:]),
-        st["pred_obj_key"].reshape(L * B, *st["pred_obj_key"].shape[2:]),
+        fold(st["pred_logits"]), *keys,
         tile(tgt_labels), tile(tgt_kps), tile(tgt_valid),
         cost_class=cost_class, cost_keypoint=cost_keypoint).reshape(L, B, -1)
+    det_names = ("loss_ce", "loss_hand_keypoint", "loss_obj_keypoint")[:3 if two_stage else 1]
 
     def det_losses(logits, hand_key, obj_key, assign):
         l_ce = loss_labels(logits, tgt_labels, assign, tgt_valid, num_boxes)
+        if not two_stage:
+            return (l_ce,)
         l_h, l_o = loss_keypoints(hand_key, obj_key, tgt_labels, tgt_kps, assign, tgt_valid)
         return l_ce, l_h, l_o
 
@@ -318,24 +329,26 @@ def arctic_criterion(
         total = total + weights.get(name, 0.0) * val
 
     for lvl in range(L):
-        layer = {k: v[lvl] for k, v in st.items()}
+        layer = {k: None if v is None else v[lvl] for k, v in st.items()}
         det = det_losses(layer["pred_logits"], layer["pred_hand_key"], layer["pred_obj_key"],
                          assign_all[lvl])
         small = compute_small_loss(select_queries(layer), targets, mano_r, mano_l, obj_bank,
                                    img_res)
         # the JAX package adds the small losses in its pytree (sorted) order
-        named = list(zip(("loss_ce", "loss_hand_keypoint", "loss_obj_keypoint"), det))
+        named = list(zip(det_names, det))
         named += [(k, small[k]) for k in sorted(small)]
         for name, val in named:
             add(name if lvl == L - 1 else f"{name}_{lvl}", name, val)
 
-    io = outputs["interm_outputs"]
-    assign_i = arctic_match(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
-                            tgt_labels, tgt_kps, tgt_valid,
-                            cost_class=cost_class, cost_keypoint=cost_keypoint)
-    det_i = det_losses(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"], assign_i)
-    for name, val in zip(("loss_ce", "loss_hand_keypoint", "loss_obj_keypoint"), det_i):
-        add(f"{name}_interm", name, val)
+    if "interm_outputs" in outputs:
+        io = outputs["interm_outputs"]
+        assign_i = arctic_match(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
+                                tgt_labels, tgt_kps, tgt_valid,
+                                cost_class=cost_class, cost_keypoint=cost_keypoint)
+        det_i = det_losses(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
+                           assign_i)
+        for name, val in zip(det_names, det_i):
+            add(f"{name}_interm", name, val)
 
     # cardinality error (logging only): predictions with argmax != 0 against
     # every target slot, validity-unfiltered as in the reference

@@ -63,10 +63,10 @@ def hungarian_small(cost: torch.Tensor, target_valid: torch.Tensor) -> torch.Ten
 
 def arctic_match_costs(
     pred_logits: torch.Tensor,  # (B, Q, C)
-    pred_hand_key: torch.Tensor,  # (B, Q, 42)
-    pred_obj_key: torch.Tensor,  # (B, Q, 42)
+    pred_hand_key: torch.Tensor | None,  # (B, Q, 42); None: class cost only
+    pred_obj_key: torch.Tensor | None,  # (B, Q, 42)
     tgt_labels: torch.Tensor,  # (B, T) int
-    tgt_keypoints: torch.Tensor,  # (B, T, 42)
+    tgt_keypoints: torch.Tensor | None,  # (B, T, 42)
     cost_class: float = 1.5,
     cost_keypoint: float = 4.0,
     alpha: float = 0.25,
@@ -80,11 +80,14 @@ def arctic_match_costs(
     B, Q = pred_logits.shape[:2]
     cls_cost = torch.gather(pos - neg, 2, lab[:, None, :].expand(B, Q, -1))  # (B, Q, T)
 
+    cost = cost_class * cls_cost
+    if tgt_keypoints is None or pred_hand_key is None:  # the single-stage model
+        return cost
     is_hand = (tgt_labels == 12) | (tgt_labels == 13)  # (B, T)
     d_hand = (pred_hand_key[:, :, None, :] - tgt_keypoints[:, None, :, :]).abs().sum(-1)
     d_obj = (pred_obj_key[:, :, None, :] - tgt_keypoints[:, None, :, :]).abs().sum(-1)
     kp_cost = torch.where(is_hand[:, None, :], d_hand, d_obj)
-    return cost_class * cls_cost + cost_keypoint * kp_cost
+    return cost + cost_keypoint * kp_cost
 
 
 @torch.no_grad()

@@ -1,22 +1,36 @@
 """UVHand DETR: ResNet-50 + deformable transformer + output heads.
 
 Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`,
-`backbone="resnet50"`, two-stage with box refinement:
+`backbone="resnet50"`, without the DINO and temporal variants:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
     stride-2 3x3 level from the last backbone map,
+  - position encoding: sine (the default) or learned
+    (`position_embedding="learned"`, the reference Joiner's slot 1,
+    `backbone.1.{row,col}_embed`),
+  - the two-stage box-refine model (the reference's `--two_stage
+    --with_box_refine`) or the single-stage one (the CLI's default): learned
+    queries (`query_embed`) and a class head shared by every decoder layer
+    (`with_box_refine=False`, one module registered per layer) or one per
+    layer (`with_box_refine=True`); no keypoint outputs and no interm
+    outputs,
   - heads per decoder layer: class and keypoints (used inside the
     transformer), mano pose 48 / beta 10, hand cam 3, obj cam 3, obj rot 3,
     obj radian 1 (the non-class heads share weights across layers),
-  - per-layer 42-d keypoint outputs and the encoder's interm outputs in
-    [-1, 1] via sigmoid*2-1,
+  - two-stage per-layer 42-d keypoint outputs and the encoder's interm
+    outputs in [-1, 1] via sigmoid*2-1,
+  - `aux_loss=False` drops the `aux_outputs` key only, as the JAX model
+    does: `stacked` keeps every layer, and the criterion reads that,
   - train mode (`model.train()`): dropout in the transformer and the
     encoder feature mask (each input-projected element kept with
     probability 1 - feature_mask_ratio, with no rescale), both drawn from
-    the `torch.Generator` passed to `forward`,
+    the `torch.Generator` passed to `forward`; `remat` and `enc_lite` as in
+    the transformer,
   - `compute_dtype` (the JAX model's bf16 compute mode): the backbone and
     the transformer compute in it where the JAX model does; the input
-    projections, whose flax convs have no dtype, promote the backbone maps
-    to float32, and the heads stay float32. Parameters stay float32.
+    projections and heads compute in the promoted type of their input and
+    parameters (`layers.py`), so with float32 parameters they are float32.
+    `param_dtype=torch.bfloat16` stores every parameter in bfloat16 (the JAX
+    package's `--bf16_params`, used with `compute_dtype=torch.bfloat16`).
 
 Images enter NHWC like the JAX model and are permuted to NCHW for the
 backbone. The output dict has the JAX model's keys (`stacked`,
@@ -35,7 +49,8 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.msda import MSDeformAttn
 from .backbones.resnet import RESNET50_CHANNELS, ResNet50
-from .posenc import sine_position_encoding
+from .layers import Conv2d, GroupNorm, Linear
+from .posenc import LearnedPositionEncoding, sine_position_encoding
 from .transformer import MLP, DeformableTransformer, keep_mask
 
 
@@ -52,9 +67,9 @@ class InputProj(nn.Sequential):
     as the reference's `input_proj.{i}.0` / `.1`."""
 
     def __init__(self, cin: int, d_model: int, extra_level: bool = False):
-        conv = (nn.Conv2d(cin, d_model, 3, stride=2, padding=1) if extra_level
-                else nn.Conv2d(cin, d_model, 1))
-        super().__init__(conv, nn.GroupNorm(32, d_model, eps=1e-5))
+        conv = (Conv2d(cin, d_model, 3, stride=2, padding=1) if extra_level
+                else Conv2d(cin, d_model, 1))
+        super().__init__(conv, GroupNorm(32, d_model, eps=1e-5))
 
 
 class _Joiner0(nn.Module):
@@ -73,17 +88,32 @@ class UVHandDETR(nn.Module):
                  dim_feedforward: int = 1024, num_feature_levels: int = 4,
                  dec_n_points: int = 4, enc_n_points: int = 4,
                  dropout: float = 0.1, feature_mask_ratio: float = 0.3,
+                 two_stage: bool = True, with_box_refine: bool = True,
+                 aux_loss: bool = True, position_embedding: str = "sine",
+                 enc_lite: bool = False, enc_lite_hi_every: int = 3, remat: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
-        (the CUDA card unless `device="cpu"` is given), in eval mode."""
+        (the CUDA card unless `device="cpu"` is given), in eval mode.
+        Raises ValueError on a combination the JAX model cannot build
+        (`two_stage=True, with_box_refine=False`)."""
         super().__init__()
+        if position_embedding not in ("sine", "learned"):
+            raise ValueError(f"unknown position_embedding {position_embedding!r}")
         device = resolve_device(device)
         self.d_model = d_model
         self.feature_mask_ratio = feature_mask_ratio
         self.num_decoder_layers = num_decoder_layers
         self.num_feature_levels = num_feature_levels
-        self.backbone = nn.ModuleList([_Joiner0(compute_dtype)])
+        self.two_stage = two_stage
+        self.aux_loss = aux_loss
+        # the reference's Joiner(backbone, position_embedding): the learned
+        # embedding's parameters sit in its slot 1
+        self.backbone = nn.ModuleList(
+            [_Joiner0(compute_dtype)]
+            + ([LearnedPositionEncoding(d_model // 2)] if position_embedding == "learned"
+               else []))
         nb = len(RESNET50_CHANNELS)
         self.input_proj = nn.ModuleList(
             [InputProj(c, d_model) for c in RESNET50_CHANNELS]
@@ -97,26 +127,40 @@ class UVHandDETR(nn.Module):
             dim_feedforward=dim_feedforward,
             num_feature_levels=num_feature_levels,
             dec_n_points=dec_n_points, enc_n_points=enc_n_points,
-            num_queries=num_queries, dropout=dropout, compute_dtype=compute_dtype)
-        num_pred = num_decoder_layers + 1  # two-stage: the extra one is the encoder head
-        self.cls_embed = nn.ModuleList(nn.Linear(d_model, num_classes) for _ in range(num_pred))
-        self.key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
-        self.obj_key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
+            num_queries=num_queries, dropout=dropout, two_stage=two_stage,
+            with_box_refine=with_box_refine, enc_lite=enc_lite,
+            enc_lite_hi_every=enc_lite_hi_every, remat=remat, compute_dtype=compute_dtype)
+        if not two_stage:
+            self.query_embed = nn.Embedding(num_queries, 2 * d_model)
+        # two-stage: the extra class and keypoint heads are the encoder's
+        num_pred = num_decoder_layers + 1 if two_stage else num_decoder_layers
+        if with_box_refine:
+            self.cls_embed = nn.ModuleList(Linear(d_model, num_classes) for _ in range(num_pred))
+        else:  # the reference registers ONE class head num_pred times
+            self.cls_embed = nn.ModuleList([Linear(d_model, num_classes)] * num_pred)
+        # keypoint heads only where the JAX model calls them (the refinement
+        # of the two-stage box-refine model); it has no parameters elsewhere
+        self.key_embed = self.obj_key_embed = None
+        if self.transformer.refine:
+            self.key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
+            self.obj_key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3)
+                                               for _ in range(num_pred))
         # the reference registers ONE module per output head num_pred times
         for name, dout in (("mano_pose_embed", 48), ("mano_beta_embed", 10),
                            ("hand_cam", 3), ("obj_cam", 3), ("obj_rot", 3),
                            ("obj_rad", 1)):
-            setattr(self, name, nn.ModuleList([nn.Linear(d_model, dout)] * num_pred))
+            setattr(self, name, nn.ModuleList([Linear(d_model, dout)] * num_pred))
         self.reset_parameters(generator)
-        self.to(device)
+        self.to(device=device, dtype=param_dtype)
         self.eval()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Random weights from `generator`: xavier-uniform linears and convs
         with zero biases, the MSDA offset/attention init, level embeddings
-        ~ N(0, 1), the focal-loss prior on the class biases, and the
-        two-stage xy spread at logit(0.05)."""
+        and learned queries ~ N(0, 1), learned position embeddings ~ U(0, 1),
+        the focal-loss prior on the class biases, and the two-stage xy
+        spread at logit(0.05)."""
         for mod in self.modules():
             # (the backbone's bias-free convs are drawn by its own reset below)
             if isinstance(mod, (nn.Linear, nn.Conv2d)) and mod.bias is not None:
@@ -130,7 +174,12 @@ class UVHandDETR(nn.Module):
             if isinstance(mod, MSDeformAttn):
                 mod.reset_parameters(generator)
         self.transformer.level_embed.normal_(0.0, 1.0, generator=generator)
-        self.transformer.two_stage_learn_xy.weight.fill_(math.log(0.05 / (1 - 0.05)))
+        if self.two_stage:
+            self.transformer.two_stage_learn_xy.weight.fill_(math.log(0.05 / (1 - 0.05)))
+        else:
+            self.query_embed.weight.normal_(0.0, 1.0, generator=generator)
+        if len(self.backbone) > 1:
+            self.backbone[1].reset_parameters(generator)
         for head in self.cls_embed:
             head.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
@@ -144,9 +193,9 @@ class UVHandDETR(nn.Module):
                        generator: torch.Generator | None = None):
         """(srcs (B, C, H_l, W_l), masks (B, H_l, W_l), pos (B, H_l, W_l, C))
         for every level, from NHWC images."""
-        # float32 from here: flax promotes the compute-type maps to the input
-        # projections' float32 parameters
-        feats = [f.float() for f in self.backbone[0].body(images.permute(0, 3, 1, 2))]
+        # the input projections promote the compute-type maps to their
+        # parameters' type, as flax does
+        feats = self.backbone[0].body(images.permute(0, 3, 1, 2))
         B, H, W, _ = images.shape
         if image_mask is None:
             image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
@@ -155,7 +204,10 @@ class UVHandDETR(nn.Module):
             src = self.input_proj[lvl](feats[-1] if lvl == len(feats) else srcs[-1])
             srcs.append(self._feature_mask(src, generator))
         masks = [resize_mask(image_mask, s.shape[-2:]) for s in srcs]
-        poses = [sine_position_encoding(m, self.d_model // 2) for m in masks]
+        if len(self.backbone) > 1:
+            poses = [self.backbone[1](m) for m in masks]
+        else:
+            poses = [sine_position_encoding(m, self.d_model // 2) for m in masks]
         return srcs, masks, poses
 
     def forward(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
@@ -163,8 +215,9 @@ class UVHandDETR(nn.Module):
         """images (B, H, W, 3) NHWC; image_mask (B, H, W) True = padding;
         `generator` feeds dropout and the feature mask in train mode."""
         srcs, masks, poses = self.level_features(images, image_mask, generator)
-        t_out = self.transformer(srcs, masks, poses, self.cls_embed,
-                                 self.key_embed, self.obj_key_embed, generator)
+        t_out = self.transformer(
+            srcs, masks, poses, self.cls_embed, self.key_embed, self.obj_key_embed, generator,
+            query_embed=None if self.two_stage else self.query_embed.weight)
         hs = t_out["hs"]  # (n_dec, B, Q, C)
         pose = self.mano_pose_embed[0](hs)
         beta = self.mano_beta_embed[0](hs)
@@ -179,15 +232,17 @@ class UVHandDETR(nn.Module):
         def layer_out(lvl):
             return {
                 "pred_logits": logits[lvl],
-                "pred_hand_key": hand_key[lvl],
-                "pred_obj_key": obj_key[lvl],
+                "pred_hand_key": None if hand_key is None else hand_key[lvl],
+                "pred_obj_key": None if obj_key is None else obj_key[lvl],
                 "pred_mano_params": [pose[lvl], beta[lvl]],
                 "pred_obj_params": [obj_rad[lvl], obj_rot[lvl]],
                 "pred_cams": [hand_cam[lvl], obj_cam[lvl]],
             }
 
         out = layer_out(self.num_decoder_layers - 1)
-        out["aux_outputs"] = [layer_out(lvl) for lvl in range(self.num_decoder_layers - 1)]
+        if self.aux_loss:
+            out["aux_outputs"] = [layer_out(lvl) for lvl in range(self.num_decoder_layers - 1)]
+        # every layer, with or without aux_loss: the criterion reads these
         out["stacked"] = {
             "pred_logits": logits,
             "pred_hand_key": hand_key,
@@ -200,9 +255,10 @@ class UVHandDETR(nn.Module):
             "pred_obj_rad": obj_rad,
         }
         enc = t_out["enc_outputs"]
-        out["interm_outputs"] = {
-            "pred_logits": enc["pred_logits"],
-            "pred_hand_key": torch.sigmoid(enc["pred_hand_key_unact"]) * 2 - 1,
-            "pred_obj_key": torch.sigmoid(enc["pred_obj_key_unact"]) * 2 - 1,
-        }
+        if enc is not None:
+            out["interm_outputs"] = {
+                "pred_logits": enc["pred_logits"],
+                "pred_hand_key": torch.sigmoid(enc["pred_hand_key_unact"]) * 2 - 1,
+                "pred_obj_key": torch.sigmoid(enc["pred_obj_key_unact"]) * 2 - 1,
+            }
         return out

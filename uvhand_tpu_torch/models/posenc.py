@@ -1,12 +1,14 @@
-"""Sine 2D position embedding (DETR style), as in `uvhand_tpu/models/posenc.py`:
-normalize=True, scale=2*pi, temperature 10000, cumsum shifted by -0.5 to the
-cell centres."""
+"""2D position embeddings (DETR style), as in `uvhand_tpu/models/posenc.py`:
+the sine one (normalize=True, scale=2*pi, temperature 10000, cumsum shifted
+by -0.5 to the cell centres) and the learned one (a 50x50 grid of row and
+column embeddings)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+from torch import nn
 
 
 def interleaved_sincos(theta: torch.Tensor) -> torch.Tensor:
@@ -36,3 +38,29 @@ def sine_position_encoding(
     pos_x = interleaved_sincos(x_embed[..., None] / dim_t)
     pos_y = interleaved_sincos(y_embed[..., None] / dim_t)
     return torch.cat([pos_y, pos_x], -1)
+
+
+class LearnedPositionEncoding(nn.Module):
+    """Learned row and column embeddings (the reference's
+    `PositionEmbeddingLearned`, parameters `row_embed` / `col_embed`): a
+    (H, W) map takes the first W column and H row entries, channels
+    [column | row]. The padding mask is not read, as in the JAX module."""
+
+    def __init__(self, num_pos_feats: int = 128, grid: int = 50):
+        super().__init__()
+        self.row_embed = nn.Embedding(grid, num_pos_feats)
+        self.col_embed = nn.Embedding(grid, num_pos_feats)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """uniform(0, 1), the JAX module's init."""
+        self.row_embed.weight.uniform_(0.0, 1.0, generator=generator)
+        self.col_embed.weight.uniform_(0.0, 1.0, generator=generator)
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        """mask (B, H, W) -> (B, H, W, 2*num_pos_feats)."""
+        B, H, W = mask.shape
+        x_emb = self.col_embed.weight[:W]  # (W, F)
+        y_emb = self.row_embed.weight[:H]  # (H, F)
+        pos = torch.cat([x_emb[None].expand(H, -1, -1), y_emb[:, None].expand(-1, W, -1)], -1)
+        return pos[None].expand(B, -1, -1, -1)

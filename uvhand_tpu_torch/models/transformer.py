@@ -1,16 +1,24 @@
-"""Deformable transformer with 42-dim (21-keypoint) reference points: the
-two-stage, box-refine path of `uvhand_tpu/models/transformer.py`.
+"""Deformable transformer with 42-dim (21-keypoint) reference points, as
+`uvhand_tpu/models/transformer.py` builds it without the DINO variant:
 
   - encoder: MSDA self-attention over the flattened multi-scale features with
-    per-level embeddings and grid reference points,
+    per-level embeddings and grid reference points; with `enc_lite` (the JAX
+    package's Lite-DETR mode) most layers refine only the low-resolution
+    tokens (levels 1.., the tail of the sequence), which still sample the
+    whole, partially updated memory, and every `enc_lite_hi_every`-th layer
+    and the last refine them all,
+  - single stage (`two_stage=False`): learned queries (`query_embed`, split
+    into query position and content) and 2-d reference points
+    `sigmoid(reference_points(query_pos))`, no refinement and no keypoint
+    outputs,
   - two-stage proposals: per-location grid + learned 40-d xy spread -> 42-d
     proposal, encoder-output class/keypoint heads, class-aware top-k with
     hand/object keypoint substitution,
   - proposal positional embedding 42x128 -> MLP(5376->1024->1024->2C) + LN,
   - decoder: MHA self-attention + MSDA cross-attention, iterative reference
     refinement gated by the per-layer argmax class (hands {12, 13}; class 0
-    frozen); reference points live in [-1, 1] via `sigmoid()*2-1`, a parity
-    quirk of the reference.
+    frozen) in the two-stage box-refine model; reference points live in
+    [-1, 1] via `sigmoid()*2-1`, a parity quirk of the reference.
 
 In train mode (`module.train()`) dropout is on, as in the JAX package's
 `Drop` and its decoder self-attention's weight dropout, drawing from the
@@ -22,25 +30,38 @@ The class and keypoint heads belong to `UVHandDETR` (reference names
 `cls_embed.{i}`, `key_embed.{i}`...) and are passed into `forward`, since the
 decoder's refinement is gated on them.
 
+With `remat` (train mode only) each encoder and decoder layer runs under
+`torch.utils.checkpoint`: its activations are dropped after the forward and
+recomputed in the backward, as the JAX package's `nn.remat` does. The
+recompute replays the layer's dropout draws from the generator state at the
+layer's entry, so it draws the masks the forward drew.
+
 `compute_dtype` places bf16 exactly where the JAX transformer's
 `compute_dtype` does, layer by layer (not by autocast, whose op lists put it
 elsewhere): the MSDA value path, the FFN's two linears (the second cast back
 to float32), the decoder self-attention (projections, scores, softmax and
 weight dropout) and `pos_trans` with the proposal embedding feeding it.
-LayerNorms, `enc_output`, the heads and the residual stream stay float32;
-parameters are float32 throughout.
+LayerNorms, `enc_output`, the heads and the residual stream compute in
+the promoted type of their input and parameters (`layers.py`): float32 with
+float32 parameters. With bfloat16 parameters (`--bf16_params`) that type is
+bfloat16 wherever the input is too, as in the JAX model: the first encoder
+layer's residual input, `pos_trans_norm` and so the decoder queries, the
+first decoder layer's residual stream and its offset/attention GEMM.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.msda import MSDeformAttn, dense
+from .layers import LayerNorm, Linear
 from .posenc import interleaved_sincos
 
 
@@ -57,7 +78,7 @@ class MLP(nn.Module):
         super().__init__()
         dims = [input_dim] + [hidden_dim] * (num_layers - 1)
         outs = [hidden_dim] * (num_layers - 1) + [output_dim]
-        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims, outs))
+        self.layers = nn.ModuleList(Linear(i, o) for i, o in zip(dims, outs))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -144,14 +165,19 @@ class EncoderLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                       compute_dtype=compute_dtype)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.drop = Drop(dropout)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, generator=None):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, generator=None,
+                value=None):
+        """`value`: the whole token sequence to sample from where `src` is
+        only some of the queries (enc_lite's low-resolution-only layers);
+        None samples `src` itself."""
+        src2 = self.self_attn(src + pos, reference_points, src if value is None else value,
+                              spatial_shapes, padding_mask)
         src = self.norm1(src + self.drop(src2, generator))
         return self.norm2(src + self.drop(feed_forward(self, src, generator), generator))
 
@@ -163,14 +189,14 @@ class DecoderLayer(nn.Module):
         self.compute_dtype = compute_dtype
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        compute_dtype=compute_dtype)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         # a container of the reference's parameter names; `self_attention`
         # computes it
         self.self_attn = nn.MultiheadAttention(d_model, n_heads, batch_first=True)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
         self.drop = Drop(dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
@@ -235,16 +261,53 @@ def _class_masks(class_indices: torch.Tensor):
     return hand, obj
 
 
+def remat(fn, generator: torch.Generator | None):
+    """`fn(generator)` under `torch.utils.checkpoint` (non-reentrant): its
+    activations are recomputed in the backward. `checkpoint` restores only
+    the global RNGs, so the recompute is run from the generator's state at
+    the call -- drawing the masks the forward drew -- and the generator is
+    put back where the backward found it."""
+    if generator is None:
+        return checkpoint(fn, None, use_reentrant=False, preserve_rng_state=False)
+    start = generator.get_state()
+    ran = []
+
+    def run(gen):
+        if not ran:  # the forward
+            ran.append(True)
+            return fn(gen)
+        end = gen.get_state()  # the recompute, during the backward
+        gen.set_state(start)
+        try:
+            return fn(gen)
+        finally:
+            gen.set_state(end)
+
+    return checkpoint(run, generator, use_reentrant=False, preserve_rng_state=False)
+
+
 class DeformableTransformer(nn.Module):
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
                  dec_n_points=4, enc_n_points=4, num_queries=300, dropout=0.1,
-                 compute_dtype=torch.float32):
+                 two_stage=True, with_box_refine=True, enc_lite=False, enc_lite_hi_every=3,
+                 remat=False, compute_dtype=torch.float32):
         super().__init__()
+        if two_stage and not with_box_refine:
+            # the JAX model builds no keypoint heads there and then indexes
+            # them for the encoder's proposals
+            raise ValueError("two_stage=True with with_box_refine=False: the JAX model fails "
+                             "to build this combination (no keypoint heads for the two-stage "
+                             "proposals)")
         self.d_model = d_model
         self.compute_dtype = compute_dtype
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
+        self.two_stage = two_stage
+        self.refine = two_stage and with_box_refine
+        self.enc_lite = enc_lite
+        self.enc_lite_hi_every = enc_lite_hi_every
+        self.remat = remat
         self.encoder = _Layers(
             EncoderLayer(d_model, dim_feedforward, num_feature_levels, n_heads, enc_n_points,
                          dropout, compute_dtype)
@@ -254,15 +317,26 @@ class DeformableTransformer(nn.Module):
                          dropout, compute_dtype)
             for _ in range(num_decoder_layers))
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
-        self.enc_output = nn.Linear(d_model, d_model)
-        self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
-        self.pos_trans = nn.Sequential(
-            nn.Linear(42 * 128, 1024), nn.ReLU(),
-            nn.Linear(1024, 1024), nn.ReLU(),
-            nn.Linear(1024, 2 * d_model), nn.ReLU())
-        self.pos_trans_norm = nn.LayerNorm(2 * d_model, eps=1e-5)
-        # Embedding(1, 40), init logit(0.05)
-        self.two_stage_learn_xy = nn.Embedding(1, 40)
+        if two_stage:
+            self.enc_output = Linear(d_model, d_model)
+            self.enc_output_norm = LayerNorm(d_model, eps=1e-5)
+            self.pos_trans = nn.Sequential(
+                nn.Linear(42 * 128, 1024), nn.ReLU(),
+                nn.Linear(1024, 1024), nn.ReLU(),
+                nn.Linear(1024, 2 * d_model), nn.ReLU())
+            self.pos_trans_norm = LayerNorm(2 * d_model, eps=1e-5)
+            # Embedding(1, 40), init logit(0.05)
+            self.two_stage_learn_xy = nn.Embedding(1, 40)
+        else:
+            self.reference_points = Linear(d_model, 2)
+
+    def _layer(self, layer, generator, *args, **kwargs):
+        """`layer(*args, generator=generator, **kwargs)`, rematerialized in
+        the backward when `remat` is on and the model trains."""
+        fn = functools.partial(layer, *args, **kwargs)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(lambda gen: fn(generator=gen), generator)
+        return fn(generator=generator)
 
     def _gen_proposals(self, memory, padding_mask, spatial_shapes):
         """(memory', proposals): gen_encoder_output_proposals."""
@@ -293,36 +367,10 @@ class DeformableTransformer(nn.Module):
         mem = mem.masked_fill(~valid, 0.0)
         return self.enc_output_norm(self.enc_output(mem)), proposals
 
-    def forward(
-        self,
-        srcs: Sequence[torch.Tensor],  # L x (B, C, H_l, W_l)
-        masks: Sequence[torch.Tensor],  # L x (B, H_l, W_l) True = pad
-        pos_embeds: Sequence[torch.Tensor],  # L x (B, H_l, W_l, C)
-        cls_embed: nn.ModuleList,  # num_decoder_layers + 1 class heads
-        key_embed: nn.ModuleList,  # hand keypoint MLPs
-        obj_key_embed: nn.ModuleList,  # object keypoint MLPs
-        generator: torch.Generator | None = None,  # dropout draws (train mode)
-    ):
-        spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
-        B = srcs[0].shape[0]
-
-        src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], 1)
-        mask_flat = torch.cat([m.flatten(1) for m in masks], 1)
-        pos_flat = torch.cat(
-            [p.flatten(1, 2) + self.level_embed[lvl][None, None]
-             for lvl, p in enumerate(pos_embeds)], 1)
-        valid_ratios = torch.stack(
-            [torch.stack([(~m[:, 0, :]).sum(1).float() / m.shape[2],
-                          (~m[:, :, 0]).sum(1).float() / m.shape[1]], -1)
-             for m in masks], 1)  # (B, L, 2) = (w, h)
-
-        # ---- encoder ----
-        enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        memory = src_flat
-        for layer in self.encoder.layers:
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat, generator)
-
-        # ---- two-stage decoder inputs ----
+    def _two_stage_inputs(self, memory, mask_flat, spatial_shapes, cls_embed, key_embed,
+                          obj_key_embed):
+        """The decoder's queries, query positions and 42-d references from
+        the encoder's top-k proposals, and the interm outputs."""
         nd = self.num_decoder_layers
         out_mem, out_props = self._gen_proposals(memory, mask_flat, spatial_shapes)
         enc_cls = cls_embed[nd](out_mem)
@@ -355,21 +403,84 @@ class DeformableTransformer(nn.Module):
         pt = proposal_pos_embed(ref_unact, dtype=dt)
         for lin in self.pos_trans[::2]:  # the three linears, each followed by a ReLU
             pt = torch.relu(dense(lin, pt, dt))
-        pt = self.pos_trans_norm(pt.float())
+        pt = self.pos_trans_norm(pt)
         query_pos, tgt = torch.split(pt, self.d_model, -1)
+        enc_outputs = {
+            "pred_logits": enc_cls,
+            "pred_hand_key_unact": enc_hand,
+            "pred_obj_key_unact": enc_obj,
+        }
+        return tgt, query_pos, reference_points, enc_outputs
 
-        # ---- decoder with gated reference refinement ----
+    def forward(
+        self,
+        srcs: Sequence[torch.Tensor],  # L x (B, C, H_l, W_l)
+        masks: Sequence[torch.Tensor],  # L x (B, H_l, W_l) True = pad
+        pos_embeds: Sequence[torch.Tensor],  # L x (B, H_l, W_l, C)
+        cls_embed: nn.ModuleList,  # a class head per decoder layer (+1 two-stage)
+        key_embed: nn.ModuleList | None,  # hand keypoint MLPs (two-stage box refine)
+        obj_key_embed: nn.ModuleList | None,  # object keypoint MLPs (likewise)
+        generator: torch.Generator | None = None,  # dropout draws (train mode)
+        query_embed: torch.Tensor | None = None,  # (Q, 2C) learned queries (single stage)
+    ):
+        spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
+        B = srcs[0].shape[0]
+
+        src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], 1)
+        mask_flat = torch.cat([m.flatten(1) for m in masks], 1)
+        pos_flat = torch.cat(
+            [p.flatten(1, 2) + self.level_embed[lvl][None, None]
+             for lvl, p in enumerate(pos_embeds)], 1)
+        valid_ratios = torch.stack(
+            [torch.stack([(~m[:, 0, :]).sum(1).float() / m.shape[2],
+                          (~m[:, :, 0]).sum(1).float() / m.shape[1]], -1)
+             for m in masks], 1)  # (B, L, 2) = (w, h)
+
+        # ---- encoder ----
+        enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
+        memory = src_flat
+        n_hi = spatial_shapes[0][0] * spatial_shapes[0][1]  # level-0 tokens
+        n_enc = len(self.encoder.layers)
+        for i, layer in enumerate(self.encoder.layers):
+            if (not self.enc_lite or (i + 1) % self.enc_lite_hi_every == 0
+                    or i == n_enc - 1):
+                memory = self._layer(layer, generator, memory, pos_flat, enc_ref,
+                                     spatial_shapes, mask_flat)
+            else:
+                # refine the low-resolution tokens only; they sample the whole
+                # partially updated sequence under the full padding mask
+                lo = self._layer(layer, generator, memory[:, n_hi:], pos_flat[:, n_hi:],
+                                 enc_ref[:, n_hi:], spatial_shapes, mask_flat, value=memory)
+                memory = torch.cat([memory[:, :n_hi], lo], 1)
+
+        # ---- decoder inputs ----
+        enc_outputs = None
+        if self.two_stage:
+            tgt, query_pos, reference_points, enc_outputs = self._two_stage_inputs(
+                memory, mask_flat, spatial_shapes, cls_embed, key_embed, obj_key_embed)
+        else:
+            query_pos, tgt = torch.split(query_embed, self.d_model, -1)
+            query_pos = query_pos[None].expand(B, -1, -1)
+            tgt = tgt[None].expand(B, -1, -1)
+            reference_points = torch.sigmoid(self.reference_points(query_pos))
+
+        # ---- decoder, with gated reference refinement (two-stage box refine) ----
         hs_list, refs_in, logits_list, hand_keys, obj_keys = [], [], [], [], []
         output = tgt
         ref = reference_points
-        vr42 = valid_ratios.repeat(1, 1, 21)[:, None]  # (B, 1, L, 42)
+        if ref.shape[-1] == 42:
+            vr = valid_ratios.repeat(1, 1, 21)[:, None]  # (B, 1, L, 42)
+        else:
+            vr = valid_ratios[:, None]  # (B, 1, L, 2)
         for lid, layer in enumerate(self.decoder.layers):
             refs_in.append(ref)
-            output = layer(output, query_pos, ref[:, :, None] * vr42, memory,
-                           spatial_shapes, mask_flat, generator)
+            output = self._layer(layer, generator, output, query_pos, ref[:, :, None] * vr,
+                                 memory, spatial_shapes, mask_flat)
             hs_list.append(output)
             logits = cls_embed[lid](output)
             logits_list.append(logits)
+            if not self.refine:
+                continue
             hand_m, obj_m = _class_masks(logits.argmax(-1))
             d_hand = key_embed[lid](output)
             d_obj = obj_key_embed[lid](output)
@@ -388,12 +499,8 @@ class DeformableTransformer(nn.Module):
             "init_reference": reference_points,
             "refs_in": torch.stack(refs_in),
             "pred_logits": torch.stack(logits_list),
-            "pred_hand_key": torch.stack(hand_keys),
-            "pred_obj_key": torch.stack(obj_keys),
-            "enc_outputs": {
-                "pred_logits": enc_cls,
-                "pred_hand_key_unact": enc_hand,
-                "pred_obj_key_unact": enc_obj,
-            },
+            "pred_hand_key": torch.stack(hand_keys) if self.refine else None,
+            "pred_obj_key": torch.stack(obj_keys) if self.refine else None,
+            "enc_outputs": enc_outputs,
             "memory": memory,
         }

@@ -470,8 +470,10 @@ class MSDeformAttn(nn.Module):
 
     `compute_dtype` is the value path's type, as in the JAX layer: the
     value and output projections compute in it, the value and the attention
-    weights enter the op in it; the offset/attention GEMM and the sampling
-    locations stay float32, and the output is float32."""
+    weights enter the op in it; the offset/attention GEMM computes in the
+    promoted type of the query and the parameters (float32 unless both are
+    bfloat16), the sampling locations are float32, and the output is
+    float32."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, impl: str = "auto",
@@ -519,13 +521,16 @@ class MSDeformAttn(nn.Module):
 
         w_qa = torch.cat([self.sampling_offsets.weight, self.attention_weights.weight])
         b_qa = torch.cat([self.sampling_offsets.bias, self.attention_weights.bias])
-        qa = F.linear(query, w_qa, b_qa)  # (B, Lq, M*L*P*3)
+        # in the promoted type of the query and the parameters, as the JAX
+        # layer's `query @ w_qa + b_qa`: float32 unless both are bfloat16
+        qt = torch.promote_types(query.dtype, w_qa.dtype)
+        qa = F.linear(query.to(qt), w_qa.to(qt), b_qa.to(qt))  # (B, Lq, M*L*P*3)
         offsets = qa[..., : M * L * P * 2].reshape(B, Lq, M, L, P, 2)
         attn = qa[..., M * L * P * 2:].reshape(B, Lq, M, L * P)
         attn = torch.softmax(attn, -1).view(B, Lq, M, L, P)
 
         normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=offsets.dtype, device=offsets.device)
+                                  dtype=torch.float32, device=offsets.device)
         if reference_points.shape[-1] == 2:
             center = reference_points[:, :, None, :, None, :]
         elif reference_points.shape[-1] == 42:

@@ -7,7 +7,11 @@ surface:
     reference's layout, `{"model": state_dict, "optimizer": ..., "step": ...,
     "epoch": ...}` (the port's parameters carry the reference's names, so
     the JAX package's `--resume x.pth` reads it through its converter), and
-    `{output_dir}/{epoch}.meta.json`;
+    `{output_dir}/{epoch}.meta.json`; bfloat16 parameters are written
+    widened to float32 (exact; the JAX package's converter reads the file
+    through numpy, which has no bfloat16) and narrowed back on restore,
+    and the optimizer's float32 state and stochastic-rounding step are
+    saved with it;
   - `load_checkpoint` restores a checkpoint directory or `.pth` with the
     `not_use_params` keyword filter (parameters whose name holds a keyword
     keep their fresh values) and restores the optimizer tolerantly (a
@@ -36,7 +40,9 @@ def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module,
     `{output_dir}/{epoch}.meta.json`); returns the checkpoint directory."""
     ckpt_dir = os.path.abspath(os.path.join(output_dir, str(epoch)))
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"model": model.state_dict(),
+    weights = {k: v.float() if v.dtype == torch.bfloat16 else v
+               for k, v in model.state_dict().items()}
+    payload = {"model": weights,
                "optimizer": None if optimizer is None else optimizer.state_dict(),
                "step": int(step), "epoch": int(epoch)}
     path = os.path.join(ckpt_dir, FILE)
@@ -70,6 +76,8 @@ def _load_params(model: torch.nn.Module, saved: dict,
     if missing:
         raise KeyError(f"the checkpoint lacks {len(missing)} of the model's tensors, e.g. "
                        f"{missing[:3]}")
+    # a saved tensor takes the type of the model's (load_state_dict copies
+    # into it): float32 into bfloat16 parameters narrows exactly
     model.load_state_dict({k: v if any(kw in k for kw in keep) else saved[k]
                            for k, v in current.items()})
 

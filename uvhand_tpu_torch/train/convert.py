@@ -1,26 +1,36 @@
 """Weights carried from the JAX package's parameter tree to the port.
 
 `state_dict_from_jax(params)` maps a flax `UVHandDETR` tree
-(`{'params': ...}` of numpy arrays, two-stage with box refinement) onto the
-port's `state_dict`, whose names are the upstream reference's state-dict
-names. It is the exact inverse of the JAX package's
-`convert_reference_detr`:
+(`{'params': ...}` of numpy arrays; sine or learned position encoding,
+two-stage with box refinement or single-stage) onto the port's
+`state_dict`, whose names are the upstream reference's state-dict names.
+It is the inverse of the JAX package's `convert_reference_detr`, and names
+the leaves that converter lacks as the reference does:
 
   backbone/*                       -> backbone.0.body.*  (torchvision names)
+  pos_embed/{row,col}_embed        -> backbone.1.{row,col}_embed.weight (the
+                                      learned embedding in the reference
+                                      Joiner's slot 1; the JAX converter has
+                                      no mapping for it)
   input_proj{i}/conv, /gn          -> input_proj.{i}.0, .1
   transformer/encoder_layer{i}/*   -> transformer.encoder.layers.{i}.*
   transformer/decoder_layer{i}/*   -> transformer.decoder.layers.{i}.*
       (flax query/key/value/out kernels (in, heads, head_dim) joined into
        torch's in_proj_weight / out_proj)
   transformer/pos_trans1/2/3       -> transformer.pos_trans.0/2/4
+  transformer/reference_points     -> transformer.reference_points (single stage)
+  query_embed                      -> query_embed.weight (single stage)
   transformer/cls_head{i}          -> cls_embed.{i}
+  transformer/cls_head_shared      -> cls_embed.{0..n} (one head, registered
+                                      once per layer: no box refinement)
   transformer/(obj_)key_head{i}/layer{j} -> (obj_)key_embed.{i}.layers.{j}
   mano_pose_head (one module)      -> mano_pose_embed.{0..n} (likewise beta,
                                       cams, rot, rad: the reference
                                       registers the same module n times)
 
 Dense kernels (in, out) are transposed to torch's (out, in); convs go
-HWIO -> OIHW.
+HWIO -> OIHW. A bfloat16 leaf (a `bf16_params` tree) is widened to float32
+on the way, which is exact, and arrives as a bfloat16 tensor.
 """
 
 from __future__ import annotations
@@ -41,7 +51,9 @@ _SHARED_HEADS = (
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32))
+    a = np.asarray(a)
+    t = torch.from_numpy(np.array(a, np.float32))  # torch takes no numpy bfloat16
+    return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
 
 
 def _count(tree: dict, prefix: str) -> int:
@@ -86,6 +98,12 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             conv(f"{dst}.downsample.0", bb[name]["down_conv"])
             frozen_bn(f"{dst}.downsample.1", bb[name]["down_bn"])
 
+    if "pos_embed" in p:
+        for name in ("row_embed", "col_embed"):
+            sd[f"backbone.1.{name}.weight"] = _t(p["pos_embed"][name])
+    if "query_embed" in p:
+        sd["query_embed.weight"] = _t(p["query_embed"])
+
     for i in range(_count(p, "input_proj")):
         conv(f"input_proj.{i}.0", p[f"input_proj{i}"]["conv"])
         norm(f"input_proj.{i}.1", p[f"input_proj{i}"]["gn"])
@@ -119,19 +137,25 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         for lin in ("linear1", "linear2"):
             linear(f"{dst}.{lin}", src[lin])
 
-    linear("transformer.enc_output", t["enc_output"])
-    norm("transformer.enc_output_norm", t["enc_output_norm"])
-    for j, name in ((0, "pos_trans1"), (2, "pos_trans2"), (4, "pos_trans3")):
-        linear(f"transformer.pos_trans.{j}", t[name])
-    norm("transformer.pos_trans_norm", t["pos_trans_norm"])
-    sd["transformer.two_stage_learn_xy.weight"] = _t(np.asarray(t["two_stage_learn_xy"]).reshape(1, -1))
+    two_stage = "enc_output" in t
+    if two_stage:
+        linear("transformer.enc_output", t["enc_output"])
+        norm("transformer.enc_output_norm", t["enc_output_norm"])
+        for j, name in ((0, "pos_trans1"), (2, "pos_trans2"), (4, "pos_trans3")):
+            linear(f"transformer.pos_trans.{j}", t[name])
+        norm("transformer.pos_trans_norm", t["pos_trans_norm"])
+        sd["transformer.two_stage_learn_xy.weight"] = _t(
+            np.asarray(t["two_stage_learn_xy"]).reshape(1, -1))
+    else:
+        linear("transformer.reference_points", t["reference_points"])
 
-    num_pred = n_dec + 1  # two-stage: the extra head is the encoder's
+    num_pred = n_dec + 1 if two_stage else n_dec  # two-stage: the encoder's head
     for i in range(num_pred):
-        linear(f"cls_embed.{i}", t[f"cls_head{i}"])
+        linear(f"cls_embed.{i}", t.get(f"cls_head{i}", t.get("cls_head_shared")))
         for src, dst in (("key_head", "key_embed"), ("obj_key_head", "obj_key_embed")):
-            for j in range(3):
-                linear(f"{dst}.{i}.layers.{j}", t[f"{src}{i}"][f"layer{j}"])
+            if f"{src}{i}" in t:
+                for j in range(3):
+                    linear(f"{dst}.{i}.layers.{j}", t[f"{src}{i}"][f"layer{j}"])
     for flax_name, torch_name in _SHARED_HEADS:
         for i in range(num_pred):
             linear(f"{torch_name}.{i}", p[flax_name])

@@ -1,12 +1,20 @@
-"""Optimizer parameter groups, gradient clipping and learning-rate schedules.
+"""Optimizer parameter groups, gradient clipping, learning-rate schedules
+and bfloat16 parameters with stochastic rounding.
 
 Port of `uvhand_tpu/train/state.py` (the reference's
-`set_training_scheduler`): AdamW over three parameter groups -- general
-`lr`, backbone `lr_backbone`, and the sampling-offset / reference-point
-projections at `lr * lr_linear_proj_mult` -- with weight decay on every
-group, the global-norm gradient clip and the OneCycle / step schedules, all
-with optax's formulas. SGD, bfloat16 parameters and stochastic rounding are
-not ported.
+`set_training_scheduler`): AdamW (or SGD with momentum 0.9, `sgd=True`) over
+three parameter groups -- general `lr`, backbone `lr_backbone`, and the
+sampling-offset / reference-point projections at `lr * lr_linear_proj_mult`
+-- with weight decay on every group, the global-norm gradient clip and the
+OneCycle / step schedules, all with optax's formulas.
+
+A model whose parameters are bfloat16 (the JAX package's `bf16_params`)
+gets `StochasticRounding`: the same torch optimizer over float32 copies and
+p <- SR_bf16(f32(p) + update), the JAX package's `float32_optimizer_state`
+and `SRTrainState`. Its 16-bit draws come from a torch.Generator seeded
+from (seed, step), so a step is repeatable from the two, as in the JAX
+package (whose draws come from `fold_in(PRNGKey(seed), step)`; the streams
+differ), and a step also takes injected draws.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import torch
 from torch import nn
 
 GROUPS = ("general", "backbone", "linear_proj")
+#: the learned position embedding's names: slot 1 of the reference Joiner
+POSITION_EMBEDDING = "backbone.1."
 
 
 def label_params(
@@ -27,9 +37,13 @@ def label_params(
 ) -> Dict[str, str]:
     """Parameter name -> 'backbone' | 'linear_proj' | 'general', matched on
     the name in that order. Every parameter gets a label, the backbone's
-    frozen-BN tensors too, as every leaf does in the JAX package."""
+    frozen-BN tensors too, as every leaf does in the JAX package. The
+    learned position embedding (`backbone.1.*`, the reference Joiner's slot)
+    is 'general', as the JAX package's `pos_embed/*` leaves are."""
 
     def label(name):
+        if name.startswith(POSITION_EMBEDDING):
+            return "general"
         if any(k in name for k in backbone_keywords):
             return "backbone"
         if any(k in name for k in linear_proj_keywords):
@@ -40,19 +54,124 @@ def label_params(
 
 
 def create_optimizer(model: nn.Module, lr: float = 2e-4, lr_backbone: float = 2e-5,
-                     lr_linear_proj_mult: float = 0.1,
-                     weight_decay: float = 1e-4) -> torch.optim.AdamW:
-    """AdamW (betas 0.9/0.999, eps 1e-8, decoupled weight decay on every
-    group) with one parameter group per label, in `GROUPS` order. Each
-    group's `lr` is its base rate; a schedule scales the three together
-    (`scheduled`)."""
+                     lr_linear_proj_mult: float = 0.1, weight_decay: float = 1e-4,
+                     sgd: bool = False, sr_seed: int = 0) -> torch.optim.Optimizer:
+    """One parameter group per label, in `GROUPS` order, each group's `lr`
+    its base rate (a schedule scales the three together, `scheduled`), with
+    weight decay on every group:
+      - float32 parameters: AdamW (betas 0.9/0.999, eps 1e-8, decoupled
+        decay), or with `sgd` SGD with momentum 0.9 and the decay added to
+        the gradient (optax's `add_decayed_weights` then `sgd`);
+      - bfloat16 parameters: the same optimizer over float32 copies with
+        stochastic rounding (`SRAdamW`, `SRSGD`, their draws seeded by
+        `sr_seed`)."""
     labels = label_params(model)
     params = dict(model.named_parameters())
     rates = {"general": lr, "backbone": lr_backbone, "linear_proj": lr * lr_linear_proj_mult}
     groups = [{"params": [params[n] for n in params if labels[n] == g], "lr": rates[g],
                "name": g} for g in GROUPS]
-    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+    sgd_args = dict(lr=lr, momentum=0.9, weight_decay=weight_decay)
+    adamw_args = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    dtypes = {p.dtype for p in params.values()}
+    if torch.bfloat16 in dtypes:
+        if dtypes != {torch.bfloat16}:
+            raise ValueError(f"parameters of several types {sorted(map(str, dtypes))}: "
+                             "bfloat16 parameters must be all of them")
+        if sgd:
+            return SRSGD(groups, sr_seed=sr_seed, **sgd_args)
+        return SRAdamW(groups, sr_seed=sr_seed, **adamw_args)
+    if sgd:
+        return torch.optim.SGD(groups, **sgd_args)
+    return torch.optim.AdamW(groups, **adamw_args)
+
+
+def stochastic_round_bf16(x: torch.Tensor, bits: torch.Tensor | None = None,
+                          generator: torch.Generator | None = None) -> torch.Tensor:
+    """float32 -> bfloat16 with stochastic rounding (E[SR(x)] == x): a
+    uniform 16-bit draw is added to the low half of the float32 pattern and
+    the sum truncated, as `uvhand_tpu/train/state.py::stochastic_round_bf16`
+    does. `bits` (any integer type, values in [0, 65536)) are the draws;
+    without them they come from `generator`. Given JAX's draws the result
+    equals the JAX function's bit for bit. Not NaN-safe, like it."""
+    x = x.float()
+    if bits is None:
+        bits = torch.randint(0, 1 << 16, x.shape, generator=generator, device=x.device,
+                             dtype=torch.int32)
+    # int32 wraps as optax's uint32 does; 0xFFFF0000 is -65536 as an int32
+    xi = (x.view(torch.int32) + bits.to(device=x.device, dtype=torch.int32)) & -65536
+    return xi.view(torch.float32).to(torch.bfloat16)
+
+
+class StochasticRounding:
+    """bfloat16 parameters stepped by torch's AdamW or SGD (`SRAdamW`,
+    `SRSGD`) over float32 copies of them, with stochastic rounding: each
+    step refreshes every copy from f32(p) and gives it p's float32
+    gradient, the optimizer steps the copies (so its state is float32), and
+    p <- SR_bf16(copy). That is p <- SR_bf16(f32(p) + u), the JAX package's
+    `float32_optimizer_state` and `SRTrainState.apply_gradients`.
+
+    `bf16_params` are the model's parameters, in parameter-group order; the
+    groups hold the copies. The draws of step t (t updates done before it)
+    come from a generator seeded with (sr_seed, t), one draw of each
+    parameter's shape in that order; `step(bits=...)` takes them instead.
+    The step count and seed live in the parameter groups, so a saved state
+    dict resumes them."""
+
+    def __init__(self, params, *args, sr_seed: int = 0, **kwargs):
+        groups = [dict(g) for g in params]
+        self.bf16_params = [p for g in groups for p in g["params"]]
+        for g in groups:
+            g.update(params=[p.detach().float() for p in g["params"]], sr_seed=sr_seed,
+                     sr_step=0)
+        super().__init__(groups, *args, **kwargs)
+        self._draws: torch.Generator | None = None
+
+    def _generator(self, device, seed: int, step: int) -> torch.Generator:
+        if self._draws is None:
+            self._draws = torch.Generator(device=device)
+        # (seed, step) -> one 63-bit seed
+        return self._draws.manual_seed((seed * 1_000_003 + step) % (1 << 63))
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Clears the gradients of the bfloat16 parameters (the copies hold
+        none between steps)."""
+        for p in self.bf16_params:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor | None] | None = None,
+             bits: Dict[torch.Tensor, torch.Tensor] | None = None):
+        """One update. `grads` are the float32 gradients in `bf16_params`
+        order (by default their `.grad` widened; None leaves a parameter
+        as it is); `bits` maps a parameter to its 16-bit draws (by default
+        drawn as the class says)."""
+        copies = [c for g in self.param_groups for c in g["params"]]
+        if grads is None:
+            grads = [None if p.grad is None else p.grad.float() for p in self.bf16_params]
+        for p, c, g in zip(self.bf16_params, copies, grads):
+            c.copy_(p)
+            c.grad = g
+        super().step()
+        first = self.param_groups[0]
+        gen = None if bits is not None else self._generator(copies[0].device, first["sr_seed"],
+                                                           first["sr_step"])
+        for p, c in zip(self.bf16_params, copies):
+            if c.grad is not None:
+                p.copy_(stochastic_round_bf16(c, None if bits is None else bits[p], gen))
+                c.grad = None
+        for group in self.param_groups:
+            group["sr_step"] += 1
+
+
+class SRAdamW(StochasticRounding, torch.optim.AdamW):
+    """AdamW over bfloat16 parameters with stochastic rounding."""
+
+
+class SRSGD(StochasticRounding, torch.optim.SGD):
+    """SGD over bfloat16 parameters with stochastic rounding."""
 
 
 def scheduled(optimizer: torch.optim.Optimizer, schedule: Callable[[int], float],
