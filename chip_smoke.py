@@ -44,8 +44,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      points made, and the phase's wall clock is logged. Then the bench's
      --check mode holds every variant's kernel against its plain version at
      the TPU check shapes in float32 and bf16 (launches checked, not
-     counted). Every model path below must launch none of the research
-     kernels; at these shapes every gather op runs its staged kernel;
+     counted), and its --kinds mode times the tiled and the general
+     `msda_onlyg` kernel in turns on the same inputs at the bench shapes,
+     and the `msda_xdot` kernel alone, in bf16 and float32 (CUDA events and
+     profiler device time), each against its plain version (launches
+     checked, not counted). The path itself must launch only the tiled
+     onlyg kernel, 0 general. Every model path below must launch none of
+     the research kernels; at these shapes every gather op runs its staged
+     kernel;
   3e. each op's general path: `ms_deform_attn` and its backward on a
      64x64 float32 level (beyond shared memory) launch the general
      kernels once each and agree with the plain versions, in the gather
@@ -179,18 +185,18 @@ RESEARCH = {
     "probe_lane_slice": msda_cuda.lane_slice_cuda,
     "probe_gather": msda_cuda.take_along_axis_cuda,
 }
-#: the ops whose wrappers pick a staged or a general kernel, and the counts
-#: of each kernel's launches
+#: the ops whose wrappers pick a staged (onlyg: tiled) or a general kernel,
+#: and the counts of each kernel's launches
 VARIANTS = {
     "msda_fwd": {"staged": msda_cuda.FWD_STAGED, "general": msda_cuda.FWD_GENERAL},
     "msda_bwd": {"staged": msda_cuda.BWD_STAGED, "general": msda_cuda.BWD_GENERAL},
     "msda_fac_fwd": {"staged": msda_cuda.FAC_FWD_STAGED, "general": msda_cuda.FAC_FWD_GENERAL},
     "msda_fac_bwd": {"staged": msda_cuda.FAC_BWD_STAGED, "general": msda_cuda.FAC_BWD_GENERAL},
     "msda_ablate_bwd": {"staged": msda_cuda.ABLATE_STAGED, "general": msda_cuda.ABLATE_GENERAL},
+    "msda_onlyg": {"tiled": msda_cuda.ONLYG_TILED, "general": msda_cuda.ONLYG_GENERAL},
 }
 #: every kernel wrapper by its kernel's name; each counts its launches (the
-#: VARIANTS ops' wrappers count both their kernels, `<op>_staged` and
-#: `<op>_general` each one)
+#: VARIANTS ops' wrappers count both their kernels, `<op>_<kind>` each one)
 KERNELS = {
     "msda_fwd": msda_cuda.ms_deform_attn_cuda,
     "msda_bwd": msda_cuda.ms_deform_attn_backward_cuda,
@@ -709,9 +715,8 @@ def research_phase():
     reset_counts()
     bench, made = {}, {}
     for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        res, calls, xdot = bench_msda_ablation.bench(list(bench_msda_ablation.VARIANTS), dtype,
-                                                     "cuda", log=tagged(tag))
-        bench[tag] = (res, xdot)
+        bench[tag], calls = bench_msda_ablation.bench(list(bench_msda_ablation.VARIANTS), dtype,
+                                                      "cuda", log=tagged(tag))
         for name, n in bench_msda_ablation.card_launches(calls).items():
             made[name] = made.get(name, 0) + n
     lane = probe_dynamic_lane_slice.run("cuda", log=log)
@@ -737,7 +742,19 @@ def research_phase():
                 kernel = bench_msda_ablation.ROUTES[bench_msda_ablation.VARIANTS[
                     r["variant"]][0]][0]
                 check_err[kernel] = max(check_err.get(kernel, 0.0), r["max_abs_err"])
-    return dict(ablation=bench, lane=lane, gathers=gathers, check_err=check_err, launches=counts)
+    # the onlyg kinds in turns and the xdot kernel alone (launches checked, not counted)
+    kinds = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        before = read_counts()
+        kinds[tag], calls = bench_msda_ablation.kinds_ab(dtype, "cuda",
+                                                         log=tagged(f"--kinds {tag}"))
+        delta = {n: c - before[n] for n, c in read_counts().items()}
+        made_ab = {**calls, "msda_onlyg": sum(n for k, n in calls.items()
+                                              if k.startswith("msda_onlyg_"))}
+        if delta != expected(made_ab):
+            raise AssertionError(f"--kinds {tag}: launches {delta}, made {dict(made_ab)}")
+    return dict(ablation=bench, lane=lane, gathers=gathers, check_err=check_err, launches=counts,
+                kinds=kinds)
 
 
 def research_rows(numbers, by_path):
@@ -755,18 +772,39 @@ def research_rows(numbers, by_path):
 
     def fp32_err(kernel):
         # the --check shapes and the bench's shapes
-        res, xdot = ablation["fp32"]
-        errs = [r["max_abs_err"] for r in res.values() if r["kernel"] == kernel]
-        if kernel == "msda_xdot":
-            errs.append(xdot["max_abs_err"])
+        errs = [r["max_abs_err"] for r in ablation["fp32"].values() if r["kernel"] == kernel]
         return max(errs + [numbers["check_err"].get(kernel, 0.0)])
 
     def variants_ms(kernel):
-        return {tag: {v: r["ms"] for v, r in ablation[tag][0].items() if r["kernel"] == kernel}
+        return {tag: {v: r["ms"] for v, r in ablation[tag].items() if r["kernel"] == kernel}
                 for tag in ablation}
 
-    bf16, xdot_bf16 = ablation["bf16"]
-    fp32, xdot_fp32 = ablation["fp32"]
+    kinds = numbers["kinds"]
+    replaces = {"msda_onlyg": f"{bench_script}:1215 (variant onlyg)",
+                "msda_xdot": f"{bench_script}:1182 (variants xdot, xdotred)"}
+
+    def kind_row(name):
+        """A kind of onlyg, or xdot: its --kinds numbers in bf16 (fp32 beside
+        them), its launches on the research path (the general onlyg: none)."""
+        op = "msda_xdot" if name == "msda_xdot" else "msda_onlyg"
+        bf, fp = kinds["bf16"][name], kinds["fp32"][name]
+        return {"name": name, "route": "cuda", "source": f"{src}{op}.cu",
+                "replaces": replaces[op], "launches": numbers["launches"][name],
+                "launches_by_path": by_path(name),
+                "max_abs_err": max(fp["max_abs_err"], 0.0 if name == "msda_onlyg_general"
+                                   else fp32_err(op)),
+                **{k: bf[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")},
+                "dtype": "bfloat16", "max_rel_err_bf16": bf["max_rel_err"],
+                **{f"{k}_fp32": fp[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "library_ms")},
+                **({"whole_variant_ms": variants_ms(op), "sector_ms": bf["sector_ms"],
+                    "sector_ms_fp32": fp["sector_ms"]} if op == "msda_xdot" else
+                   {"library_device_ms": bf["library_device_ms"],
+                    "library_device_ms_fp32": fp["library_device_ms"],
+                    "unrounded_rel_bf16": bf["unrounded_rel"]})}
+
+    bf16 = ablation["bf16"]
     biggest = max(gathers, key=lambda r: r["bound_ms"])
     return [
         row("msda_ablate_bwd", bf16["full"], fp32_err("msda_ablate_bwd"),
@@ -774,13 +812,7 @@ def research_rows(numbers, by_path):
             replaces=f"{bench_script}:1215 (variants full, matred, signfree, fused, eqgate, "
                      "eqred, nodpy, nodaw, nodv)",
             dtype="bfloat16", ms_by_variant=variants_ms("msda_ablate_bwd")),
-        row("msda_onlyg", bf16["onlyg"], fp32_err("msda_onlyg"), source=src + "msda_onlyg.cu",
-            replaces=f"{bench_script}:1215 (variant onlyg)", dtype="bfloat16",
-            ms_fp32=fp32["onlyg"]["ms"], bound_ms_fp32=fp32["onlyg"]["bound_ms"],
-            library_ms_fp32=fp32["onlyg"]["library_ms"]),
-        row("msda_xdot", xdot_bf16, fp32_err("msda_xdot"), source=src + "msda_xdot.cu",
-            replaces=f"{bench_script}:1182", dtype="bfloat16", ms_fp32=xdot_fp32["ms"],
-            bound_ms_fp32=xdot_fp32["bound_ms"], whole_variant_ms=variants_ms("msda_xdot")),
+        *(kind_row(name) for name in ("msda_onlyg_tiled", "msda_onlyg_general", "msda_xdot")),
         row("probe_lane_slice", lane, lane["max_abs_err"], source=src + "probe_lane_slice.cu",
             replaces="scripts/probe_dynamic_lane_slice.py:39", dtype="float32",
             launched_ms=lane["launched_ms"]),
@@ -909,9 +941,10 @@ def fac_formulation():
 
 def staged(per_op):
     """Launches by kernel of calls by op (`per_op`, by op name) where every
-    op of VARIANTS runs its staged kernel, as at arctic_sf's and the
-    research scripts' shapes."""
-    return {**per_op, **{f"{op}_staged": n for op, n in per_op.items() if op in VARIANTS}}
+    op of VARIANTS runs its first kind (the staged MSDA kernels, the tiled
+    onlyg kernel), as at arctic_sf's and the research scripts' shapes."""
+    return {**per_op, **{f"{op}_{next(iter(VARIANTS[op]))}": n for op, n in per_op.items()
+                         if op in VARIANTS}}
 
 
 SERVE = staged({"msda_fwd": MSDA_PER_FORWARD})
@@ -1688,8 +1721,11 @@ def main() -> int:
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
         "for the probes (probe_gather: its largest case, every case under cases; the probes' "
         "ms, plain_ms and library_ms are device time from the profiler, launched_ms the time "
-        "as launched from CUDA events); launches are phase 3d's (the research path), 0 on every "
-        "model path")
+        "as launched from CUDA events); msda_onlyg_* and msda_xdot: from --kinds (ms: CUDA "
+        "events as launched, for the onlyg kinds the lower of two medians in turns; device_ms: "
+        "the profiler's device time a call, the wrapper's output fills included; *_fp32 "
+        "beside); launches are phase 3d's (the research path: msda_onlyg_general none), 0 on "
+        "every model path")
 
     def by_path(name):
         return {"serve_fp32": serve_fp32[name], "train_fp32": train_fp32[name],

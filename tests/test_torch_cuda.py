@@ -26,16 +26,27 @@ float64 atomics, and float16 rounds them once).
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
-backward's dpy, dpx and daw and every output of `msda_xdot` bit-identical to
-their plain versions, the ablation's dvalue (atomics) and `msda_onlyg`'s
-dvalue (another summation order) within 1e-5 of their max, `msda_onlyg`'s
-daw bit-identical; the probes exact.
+backward's dpy, dpx and daw and every output of `msda_xdot` bit-identical
+to their plain versions, also where all points of a level sample one
+location (shared corners, whose sums keep the (level, point) order), on rows
+of odd length (unaligned row starts) and on rows longer than the kernel's
+window; the ablation's dvalue (atomics) within 1e-5 of its max.
+`msda_onlyg`, both kernels (tiled and general): daw bit-identical (it is
+summed apart, in the plain version's order), dvalue (another summation
+order) within 1e-5 of its max in float32 and from the general kernel, and
+within 2.5e-4 of its max (the bench's ONLYG_BF16_TOL) from the tiled kernel
+in bfloat16: there the tensor cores sum G in another order, so a G entry
+can round to a neighbouring bf16 of the plain version's (7e-5 to 1.8e-4 of
+dvalue's max measured on the H100), while a kernel that skipped rounding G
+to bf16 would be off by more than the limit; each such case checks that
+too. The probes exact.
 """
 
 import pytest
 import torch
 
 from uvhand_tpu_torch.ops import msda_ablation, msda_cuda, probes
+from uvhand_tpu_torch.scripts import bench_msda_ablation
 from uvhand_tpu_torch.ops.msda import (ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
@@ -461,10 +472,41 @@ ABLATION_CASES = ["decoder", "odd_d", "side_over_128", "integer_exact"]
 
 
 def ablation_inputs(case, dtype, device):
+    """A case of CASES, or "bench": the research bench's timing inputs (its
+    shapes, B=16, Lq=S=1045)."""
+    if case == "bench":
+        x = bench_msda_ablation.make_inputs(
+            bench_msda_ablation.BENCH_SHAPES, **bench_msda_ablation.BENCH_DIMS, dtype=dtype,
+            device=device, seed=0, lo=0.0, hi=1.0)
+        return x["value"], x["shapes"], x["loc"], x["attn"], x["g"]
     value, shapes, loc, attn, gen = make_inputs(case, dtype, device)
     b, lq, m, d = CASES[case][:4]
     grad = torch.randn(b, lq, m * d, generator=gen, device=device).to(dtype)
     return value, shapes, loc, attn, grad
+
+
+def xdot_inputs(case, dtype, device):
+    """G, shapes, locations and attention for `msda_xdot`: an ablation case;
+    "shared_corners", every point of a level at one location; "odd_rows",
+    rows of S = 27 tokens (most row starts unaligned); "long_rows", rows of
+    S = 111 * 111 tokens (the kernel's windows)."""
+    special = {"shared_corners": "decoder", "odd_rows": "out_of_range"}
+    if case == "long_rows":
+        gen = torch.Generator(device=device).manual_seed(0)
+        shapes = ((111, 111),)
+        G = torch.randn(4, 5, 111 * 111, generator=gen, device=device).to(dtype)
+        loc = torch.rand(2, 5, 2, 1, 3, 2, generator=gen, device=device)
+        attn = torch.rand(2, 5, 2, 1, 3, generator=gen, device=device).to(dtype)
+        return G, shapes, loc, attn
+    value, shapes, loc, attn, grad = ablation_inputs(special.get(case, case), dtype, device)
+    if case == "shared_corners":
+        loc = loc[:, :, :, :, :1].expand(loc.shape).contiguous()
+    if case == "odd_rows":  # ((5, 4), (3, 2)) and a level of 1x1: S = 27
+        shapes = shapes + ((1, 1),)
+        value = torch.cat([value, value[:, :1]], 1)
+        loc = torch.cat([loc, loc[:, :, :, :1]], 3)
+        attn = torch.cat([attn, attn[:, :, :, :1]], 3)
+    return msda_ablation.dense_plane(value, grad), shapes, loc, attn
 
 
 def assert_matches(name, got, want, tol):
@@ -496,31 +538,61 @@ def test_ablation_kernel_matches_plain(cuda, case, dtype, out, gate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", ["decoder", "odd_d", "side_over_128"])
-def test_onlyg_kernel_matches_plain(cuda, case, dtype):
+@pytest.mark.parametrize("case,kernel,kind", [
+    # kernel None: the wrapper's plan; "general": the bench's hook
+    ("decoder", None, "tiled"), ("decoder", "general", "general"),
+    ("integer_exact", None, "tiled"),  # D = 16
+    ("odd_d", None, "general"), ("side_over_128", None, "general"),  # D = 71, 8
+    ("bench", None, "tiled"), ("bench", "general", "general"),
+])
+def test_onlyg_kernel_matches_plain(cuda, case, kernel, kind, dtype):
     args = ablation_inputs(case, dtype, cuda)
-    kernel = msda_cuda.ms_deform_attn_onlyg_cuda
-    before = kernel.launches
-    got = kernel(*args)
+    wrapper = msda_cuda.ms_deform_attn_onlyg_cuda
+    before = (wrapper.launches, msda_cuda.ONLYG_KINDS[kind].launches)
+    got = wrapper(*args) if kernel is None else msda_cuda._launch_onlyg(kernel, *args)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert (wrapper.launches, msda_cuda.ONLYG_KINDS[kind].launches) == tuple(
+        n + 1 for n in before)
     want = msda_ablation.onlyg_torch(*args)
+    dv_tol = 1e-5
+    if kind == "tiled" and dtype == torch.bfloat16:
+        dv_tol = bench_msda_ablation.ONLYG_BF16_TOL
+        # the limit must reject a kernel that skips rounding G to bf16
+        unrounded = bench_msda_ablation.onlyg_unrounded_rel(args[0], args[4], want[0])
+        rel = float((got[0] - want[0]).abs().max() / want[0].abs().max())
+        print(f"{case}: bf16 dv rel {rel:.2e}, with G unrounded {unrounded:.2e}, "
+              f"tol {dv_tol:.1e}")
+        assert unrounded > dv_tol, unrounded
     for name, g, w in zip(("dv", "dpy", "dpx", "daw"), got, want):
-        assert_matches(name, g, w, 1e-5 if name == "dv" else 0.0)
+        assert_matches(name, g, w, dv_tol if name == "dv" else 0.0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", ABLATION_CASES)
+@pytest.mark.parametrize("case", ABLATION_CASES + ["bench", "shared_corners", "odd_rows",
+                                                   "long_rows"])
 def test_xdot_kernel_matches_plain(cuda, case, dtype):
-    value, shapes, loc, attn, grad = ablation_inputs(case, dtype, cuda)
-    G = msda_ablation.dense_plane(value, grad)
-    kernel = msda_cuda.ms_deform_attn_xdot_cuda
-    before = kernel.launches
-    got = kernel(G, shapes, loc, attn)
+    G, shapes, loc, attn = xdot_inputs(case, dtype, cuda)
+    wrapper = msda_cuda.ms_deform_attn_xdot_cuda
+    before = wrapper.launches
+    got = wrapper(G, shapes, loc, attn)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert wrapper.launches == before + 1
     want = msda_ablation.xdot_torch(G, shapes, loc, attn)
+    for name, g, w in zip(("dpy", "dpx", "daw", "ws"), got, want):
+        assert_matches(name, g, w, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_xdot_kernel_on_a_misaligned_plane(cuda, dtype):
+    """A G whose data starts one element past a 16-byte boundary: every row
+    start moves, and the kernel's vectors with it."""
+    G, shapes, loc, attn = xdot_inputs("decoder", dtype, cuda)
+    shifted = torch.empty(G.numel() + 1, dtype=dtype, device=cuda)[1:].view(G.shape)
+    shifted.copy_(G)
+    got = msda_cuda.ms_deform_attn_xdot_cuda(shifted, shapes, loc, attn)
+    want = msda_ablation.xdot_torch(shifted, shapes, loc, attn)
     for name, g, w in zip(("dpy", "dpx", "daw", "ws"), got, want):
         assert_matches(name, g, w, 0.0)
 
@@ -588,8 +660,8 @@ def test_research_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="D <= 116"):
         onlyg(torch.randn(1, 16, 2, 128, device=cuda), shapes, loc, attn,
               torch.randn(1, 5, 256, device=cuda))
-    with pytest.raises(RuntimeError, match="S <= 12288"):
-        xdot(torch.randn(2, 5, 111 * 111, device=cuda), ((111, 111),), loc, attn)
+    with pytest.raises(ValueError, match="tiled onlyg kernel takes"):  # D = 8
+        msda_cuda._launch_onlyg("tiled", value, shapes, loc, attn, grad)
     x = torch.randn(16, 32, device=cuda)
     with pytest.raises(TypeError):
         msda_cuda.lane_slice_cuda(x.double(), 2, 16)

@@ -38,7 +38,9 @@ run can show that its main path went through the kernels; the forwards',
 backwards' and ablation's wrappers count every launch, and `FWD_STAGED`,
 `FWD_GENERAL`, `BWD_STAGED`, `BWD_GENERAL`, `FAC_FWD_STAGED`,
 `FAC_FWD_GENERAL`, `FAC_BWD_STAGED`, `FAC_BWD_GENERAL`, `ABLATE_STAGED`,
-`ABLATE_GENERAL` count them by kernel. The compiler's report of each
+`ABLATE_GENERAL` count them by kernel, and so do `ONLYG_TILED` and
+`ONLYG_GENERAL` (`msda_onlyg.cu`'s kernels, chosen by `onlyg_plan`). The
+compiler's report of each
 kernel's registers, shared memory and spills (`-Xptxas -v`) is kept beside
 the library (`ptxas_report()`).
 """
@@ -112,6 +114,19 @@ def staged_plan(spatial_shapes: Sequence[Tuple[int, int]], D: int, dtype: torch.
     return StagedPlan(groups, smem) if 0 < smem <= SMEM_LIMIT else None
 
 
+#: the channel counts the tiled onlyg kernels take (csrc/msda_onlyg.cu)
+ONLYG_TILED_D = (16, 32)
+
+
+def onlyg_plan(D: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The `msda_onlyg` kernel for a call: 'tiled' (bf16 on the tensor
+    cores, float32 register-tiled on the CUDA cores) for float32 or bfloat16
+    heads of D = 16 or 32 whose value and gradient are 16-byte aligned (its
+    tiles arrive by 16-byte cp.async), else 'general' (D <= 116, any
+    alignment)."""
+    return "tiled" if dtype in STAGED_TYPES and D in ONLYG_TILED_D and aligned else "general"
+
+
 class LaunchCount:
     """A kernel's launch count, `.launches` (a plain int)."""
 
@@ -124,6 +139,9 @@ BWD_STAGED, BWD_GENERAL = LaunchCount(), LaunchCount()
 FAC_FWD_STAGED, FAC_FWD_GENERAL = LaunchCount(), LaunchCount()
 FAC_BWD_STAGED, FAC_BWD_GENERAL = LaunchCount(), LaunchCount()
 ABLATE_STAGED, ABLATE_GENERAL = LaunchCount(), LaunchCount()
+ONLYG_TILED, ONLYG_GENERAL = LaunchCount(), LaunchCount()
+#: the `msda_onlyg` kernels by the kind `onlyg_plan` names
+ONLYG_KINDS = {"tiled": ONLYG_TILED, "general": ONLYG_GENERAL}
 
 
 def _nvcc() -> str:
@@ -196,10 +214,12 @@ def library() -> ctypes.CDLL:
     lib.msda_ablate_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ip, ip,
                                     ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.msda_ablate_bwd.restype = ci
-    lib.msda_onlyg.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.msda_onlyg.restype = ci
-    lib.msda_xdot.argtypes = [vp, vp, vp, vp, vp, vp, vp, ip, ip,
-                              ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    for kind in ONLYG_KINDS:
+        getattr(lib, f"msda_onlyg_{kind}").argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                                       ci, ci, ci, ci, vp]
+        getattr(lib, f"msda_onlyg_{kind}").restype = ci
+    lib.msda_xdot.argtypes = [vp, vp, vp, vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, ci, ci,
+                              vp]
     lib.msda_xdot.restype = ci
     lib.probe_lane_slice.argtypes = [vp, vp, ci, ci, ci, ci, vp]
     lib.probe_lane_slice.restype = ci
@@ -552,29 +572,43 @@ def ms_deform_attn_onlyg_cuda(
     attention_weights: torch.Tensor,
     grad_out: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the dense `onlyg` kernel (`csrc/msda_onlyg.cu`) -> (dvalue
-    float32, dpy = 0, dpx = 0, daw float32), as the plain version
-    `msda_ablation.onlyg_torch`. Level 0 must hold at least L * P tokens.
-    Raises on any input the kernel does not take, and when the launch is
-    refused."""
-    _check(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    """Launch the dense `onlyg` kernel (`csrc/msda_onlyg.cu`) that
+    `onlyg_plan` picks ('tiled' or 'general') -> (dvalue float32, dpy = 0,
+    dpx = 0, daw float32), as the plain version `msda_ablation.onlyg_torch`.
+    Level 0 must hold at least L * P tokens. Raises on any input the kernel
+    does not take, and when the launch is refused."""
+    return _launch_onlyg(None, value, spatial_shapes, sampling_locations, attention_weights,
+                         grad_out)
+
+
+def _launch_onlyg(kind, value, spatial_shapes, loc, attn, grad_out):
+    """`ms_deform_attn_onlyg_cuda` through the kernel of `kind` (None: the
+    plan's); the bench passes 'general' to time both kernels on the same
+    inputs."""
+    _check(value, spatial_shapes, loc, attn, grad_out)
     B, S, M, D = value.shape
-    loc = sampling_locations
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     h0, w0 = spatial_shapes[0]
     if h0 * w0 < L * P:
         raise ValueError(f"onlyg reads daw off level 0's first L*P = {L * P} tokens; "
                          f"level 0 has {h0 * w0}")
+    plan = onlyg_plan(D, value.dtype,
+                      aligned=value.data_ptr() % 16 == 0 and grad_out.data_ptr() % 16 == 0)
+    kind = kind or plan
+    if kind == "tiled" and plan != "tiled":
+        raise ValueError(f"the tiled onlyg kernel takes D in {ONLYG_TILED_D} and a 16-byte "
+                         f"aligned value and grad_out (see onlyg_plan)")
     lib = library()
     dvalue = torch.empty(B, S, M, D, dtype=torch.float32, device=value.device)
-    daw = torch.empty(loc.shape[:5], dtype=torch.float32, device=value.device)
-    dpy = torch.zeros_like(daw)
-    dpx = torch.zeros_like(daw)
+    dpy, dpx, daw = _pixel_grads(loc)  # the entry writes dpy and dpx zero
     stream = torch.cuda.current_stream(value.device).cuda_stream
-    err = lib.msda_onlyg(value.data_ptr(), grad_out.data_ptr(), dvalue.data_ptr(),
-                         daw.data_ptr(), B, S, Lq, M, D, L * P,
-                         int(value.dtype == torch.bfloat16), value.device.index, stream)
-    _raise_on(lib, err, "onlyg", f"its shared-memory tiles take D <= 116, got D={D}")
+    err = getattr(lib, f"msda_onlyg_{kind}")(
+        value.data_ptr(), grad_out.data_ptr(), dvalue.data_ptr(), dpy.data_ptr(), dpx.data_ptr(),
+        daw.data_ptr(), B, S, Lq, M, D, L * P, int(value.dtype == torch.bfloat16),
+        value.device.index, stream)
+    _raise_on(lib, err, f"{kind} onlyg", "" if kind == "tiled" else
+              f"its shared-memory tiles take D <= 116, got D={D}")
+    ONLYG_KINDS[kind].launches += 1
     ms_deform_attn_onlyg_cuda.launches += 1
     return dvalue, dpy, dpx, daw
 
@@ -611,8 +645,7 @@ def ms_deform_attn_xdot_cuda(
                         dpx.data_ptr(), daw.data_ptr(), ws.data_ptr(), hw, level_start,
                         L, B, S, Lq, M, P, int(G.dtype == torch.bfloat16), G.device.index,
                         stream)
-    _raise_on(lib, err, "xdot", f"it keeps a row of S floats in shared memory: S <= 12288, "
-                                f"got S={S}")
+    _raise_on(lib, err, "xdot")
     ms_deform_attn_xdot_cuda.launches += 1
     return dpy, dpx, daw, ws
 

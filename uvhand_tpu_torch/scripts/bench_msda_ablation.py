@@ -1,7 +1,7 @@
 """MSDA backward ablation bench on the card: port of
 `scripts/bench_msda_ablation.py`.
 
-    python -m uvhand_tpu_torch.scripts.bench_msda_ablation [--check] [--fp32]
+    python -m uvhand_tpu_torch.scripts.bench_msda_ablation [--check | --kinds] [--fp32]
         [--device DEV] [variant ...]
 
 The TPU bench timed stripped and restructured bodies of its MSDA kernels to
@@ -30,6 +30,10 @@ outputs costs:
   bwdfac                       the factorized backward: `msda_fac_bwd`
   fwd fwdsepx fwdT             the forward: `msda_fwd`
   fwdfac                       the factorized forward: `msda_fac_fwd`
+
+`--kinds` times the tiled and the general `msda_onlyg` kernel in turns on
+the same inputs at the bench shapes, and the `msda_xdot` kernel alone (G
+made before), each held against its plain version (`kinds_ab`).
 
 `--check` holds each variant's kernel against its plain version at the TPU
 script's check shapes (levels 6x6, 3x3, 2x2; B=2, M=2, D=32, P=4, Lq=S=49;
@@ -63,7 +67,8 @@ from uvhand_tpu_torch.ops import msda_ablation, msda_cuda
 from uvhand_tpu_torch.ops.msda import (ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
-from uvhand_tpu_torch.scripts.measure import (BF16_TC_OPS_PER_S, FP32_OPS_PER_S, bound_ms,
+from uvhand_tpu_torch.scripts.measure import (BF16_TC_OPS_PER_S, FP32_OPS_PER_S,
+                                              HBM_BYTES_PER_S, bound_ms, device_ms,
                                               in_map_corners, median_ms, msda_bound_ms,
                                               msda_bwd_bound_ms, nbytes)
 
@@ -126,6 +131,13 @@ ORDERED = {"ablate": {"dv"}, "onlyg": {"dv"}, "xdot": {"dv"}, "bwd": {"dvalue"},
 #: a float32 sum in another order: 1e-5 of the max; rounded to bf16 afterwards
 #: (the landed backwards' dvalue in bf16): 2e-2
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: `msda_onlyg`'s dvalue for a bf16 value: the tiled kernel's G, summed on the
+#: tensor cores, can round to another bf16 than the plain version's
+#: sequential G (one last-bit step), so dvalue differs by 7e-5 (the bench
+#: shapes) to 1.8e-4 (the card tests' decoder case) of its max on the H100.
+#: A kernel that skips round_T (G kept in float32, `onlyg_unrounded_rel`)
+#: is off by more than this on every such input
+ONLYG_BF16_TOL = 2.5e-4
 ITERS, WARMUP = 10, 3  # the timing mode's calls of each variant
 
 
@@ -161,20 +173,36 @@ def run(variant, x, impl="auto"):
     return fn(*args, x["g"]) if route in ("bwd", "fac_bwd") else (fn(*args),)
 
 
-def compare(variant, outs, refs):
-    """[(output, max|delta|, rel, tol, ok)] of a kernel's outputs against its
-    plain version's: exact where the kernel keeps the plain version's order,
-    else within TOL of the output's max."""
-    route = VARIANTS[variant][0]
+def held(names, outs, refs, tols):
+    """[(output, max|delta|, rel, tol, ok)] of outputs against references,
+    each within its tolerance (`tols`, by name; 0 elsewhere: exact) of the
+    reference's max."""
     rows = []
-    for name, o, r in zip(ROUTES[route][2], outs, refs):
+    for name, o, r in zip(names, outs, refs):
         err = float((o.double() - r.double()).abs().max())
         rel = err / max(float(r.double().abs().max()), 1e-30)
-        tol = TOL[o.dtype] if name in ORDERED.get(route, ()) else 0.0
+        tol = tols.get(name, 0.0)
         ok = (o.dtype == r.dtype and o.shape == r.shape
               and bool(torch.isfinite(o.double()).all()) and rel <= tol)
         rows.append((name, err, rel, tol, ok))
     return rows
+
+
+def tolerances(route, outs, dtype):
+    """The tolerance of each output of a route's kernel that sums in another
+    order than its plain version (ORDERED), for a value of type `dtype`."""
+    names = ROUTES[route][2]
+    return {name: ONLYG_BF16_TOL if route == "onlyg" and dtype == torch.bfloat16
+            else TOL[o.dtype] for name, o in zip(names, outs) if name in ORDERED.get(route, ())}
+
+
+def compare(variant, outs, refs, dtype):
+    """[(output, max|delta|, rel, tol, ok)] of a kernel's outputs against its
+    plain version's for a value of type `dtype`: exact where the kernel keeps
+    the plain version's order, else within its tolerance of the output's
+    max."""
+    route = VARIANTS[variant][0]
+    return held(ROUTES[route][2], outs, refs, tolerances(route, outs, dtype))
 
 
 def check(variants, dtype=torch.float32, device=None, log=print):
@@ -192,9 +220,9 @@ def check(variants, dtype=torch.float32, device=None, log=print):
         if device.type == "cuda":
             torch.cuda.synchronize()
         route = VARIANTS[variant][0]
-        for name, err, rel, tol, ok in compare(variant, outs, refs):
+        for name, err, rel, tol, ok in compare(variant, outs, refs, dtype):
             line = (f"{variant:10s} {name:6s} max|delta| vs plain = {err:.2e} (rel {rel:.1e}, "
-                    f"tol {tol:.0e})")
+                    f"tol {tol:.1e})")
             if route in ("ablate", "onlyg", "xdot"):
                 k = ROUTES[route][2].index(name)
                 vs_full = float((outs[k].double() - full[k].double()).abs().max())
@@ -217,11 +245,13 @@ def variant_bound(variant, x, outs):
     if route in ("bwd", "fac_bwd", "ablate"):
         return msda_bwd_bound_ms(value, shapes, loc, attn, g, outputs=outs)
     # onlyg and the whole xdot variant: two dense products of 2*BM*Lq*S*D
-    # operations each, on the tensor cores in bf16
+    # operations each, on the tensor cores in bf16; onlyg reads neither the
+    # locations nor the attention
     B, S, M, D = value.shape
     ops = 4 * B * M * loc.shape[1] * S * D
     rate = BF16_TC_OPS_PER_S if value.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    return bound_ms(nbytes(value, loc, attn, g, *outs), ops, rate)
+    reads = (value, g) if route == "onlyg" else (value, loc, attn, g)
+    return bound_ms(nbytes(*reads, *outs), ops, rate)
 
 
 def xdot_kernel_bound(x, G, outs):
@@ -234,6 +264,36 @@ def xdot_kernel_bound(x, G, outs):
                     + corners * G.element_size(), 0)
 
 
+def xdot_sector_ms(x, G, outs):
+    """The `msda_xdot` kernel's bytes as the card moves them: as
+    `xdot_kernel_bound`, but G counted in the 32-byte sectors that this
+    run's in-map corners touch (each sector once), the granularity at which
+    the card reads; over the memory rate, in ms. An estimate beside the
+    bound, not a bound."""
+    dpy, dpx, daw, ws = outs
+    loc, shapes = x["loc"], x["shapes"]
+    B, Lq, M = loc.shape[:3]
+    S, elem = G.shape[-1], G.element_size()
+    dev = loc.device
+    # row (b, q, m) of the plane starts at ((b * M + m) * Lq + q) * S
+    rows = ((torch.arange(B, device=dev).view(B, 1, 1) * M
+             + torch.arange(M, device=dev).view(1, 1, M)) * Lq
+            + torch.arange(Lq, device=dev).view(1, Lq, 1)) * S
+    sectors, start = [], 0
+    for lvl, (H, W) in enumerate(shapes):
+        px = loc[:, :, :, lvl, :, 0] * W - 0.5
+        py = loc[:, :, :, lvl, :, 1] * H - 0.5
+        for dy in (0, 1):
+            for dx in (0, 1):
+                cx, cy = torch.floor(px) + dx, torch.floor(py) + dy
+                valid = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+                flat = rows[..., None] + start + (cy * W + cx).long()
+                sectors.append((flat[valid] * elem) // 32)
+        start += H * W
+    n = int(torch.unique(torch.cat(sectors)).numel())
+    return (nbytes(loc, x["attn"], dpy, dpx, daw, ws) + 32 * n) / HBM_BYTES_PER_S * 1e3
+
+
 def onlyg_library(x):
     """`onlyg`'s dvalue by two `torch.matmul` calls (the library's yardstick
     for the dense kernel; nothing of the port calls it): G = g v^T rounded to
@@ -244,10 +304,23 @@ def onlyg_library(x):
     return torch.matmul(G.transpose(1, 2).float(), g.float())
 
 
+def onlyg_unrounded_rel(value, g, dvalue):
+    """The control of `ONLYG_BF16_TOL`: max|dv' - dvalue| / max|dvalue|,
+    where dv' is onlyg's dvalue from a G kept in float32 (round_T skipped),
+    as a kernel that forgot the rounding would give, and `dvalue` the plain
+    version's (B, S, M, D)."""
+    B, S, M, D = value.shape
+    v = value.float().permute(0, 2, 1, 3).reshape(B * M, S, D)
+    g = g.float().reshape(B, -1, M, D).permute(0, 2, 1, 3).reshape(B * M, -1, D)
+    dv = torch.matmul(torch.matmul(g, v.transpose(1, 2)).transpose(1, 2), g)
+    ref = dvalue.permute(0, 2, 1, 3).reshape(B * M, S, D)
+    return float((dv - ref).abs().max() / ref.abs().max())
+
+
 def bench(variants, dtype=torch.bfloat16, device=None, log=print):
-    """Times each variant on the card at the TPU script's shapes. Returns
-    ({variant: numbers}, card calls by variant, and the `msda_xdot` kernel's
-    own numbers when xdot ran)."""
+    """Times each variant on the card at the TPU script's shapes (the
+    `msda_xdot` kernel alone: `kinds_ab`). Returns ({variant: numbers}, card
+    calls by variant)."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("the timing mode measures the card; on the CPU run --check")
@@ -255,12 +328,12 @@ def bench(variants, dtype=torch.bfloat16, device=None, log=print):
                     lo=0.0, hi=1.0)
     # each call samples elsewhere, as the TPU script moves py by 1e-4 a step
     locs = [x["loc"] + 1e-4 * i for i in range(ITERS + WARMUP)]
-    calls, results, xdot_kernel = Counter(), {}, None
+    calls, results = Counter(), {}
     for variant in variants:
         outs = run(variant, x)
         refs = run(variant, x, impl="torch")
         torch.cuda.synchronize()
-        errs = compare(variant, outs, refs)
+        errs = compare(variant, outs, refs, dtype)
         cycle = itertools.cycle(locs)
         ms = median_ms(lambda: run(variant, dict(x, loc=next(cycle))), ITERS, WARMUP)
         plain = median_ms(lambda: run(variant, x, impl="torch"), iters=1, warmup=0)
@@ -278,40 +351,107 @@ def bench(variants, dtype=torch.bfloat16, device=None, log=print):
             f" bound {bound:.4f} ms ({by}), plain {plain:.3f} ms, max|delta| vs plain "
             + ", ".join(f"{n} {e:.2e}" for n, e, *_ in errs)
             + ("" if results[variant]["ok"] else "  MISMATCH"))
-        if VARIANTS[variant][0] == "xdot":
-            G = msda_ablation.dense_plane(x["value"], x["g"])
-            k_outs = msda_cuda.ms_deform_attn_xdot_cuda(G, x["shapes"], x["loc"], x["attn"])
-            k_refs = msda_ablation.xdot_torch(G, x["shapes"], x["loc"], x["attn"])
-            torch.cuda.synchronize()
-            k_err = max(float((o.double() - r.double()).abs().max())
-                        for o, r in zip(k_outs, k_refs))
-            k_ms = median_ms(lambda: msda_cuda.ms_deform_attn_xdot_cuda(
-                G, x["shapes"], next(cycle), x["attn"]), ITERS, WARMUP)
-            k_plain = median_ms(lambda: msda_ablation.xdot_torch(
-                G, x["shapes"], x["loc"], x["attn"]), iters=1, warmup=0)
-            calls["xdot_kernel"] += 1 + ITERS + WARMUP
-            k_bound, k_by = xdot_kernel_bound(x, G, k_outs)
-            xdot_kernel = dict(ms=k_ms, plain_ms=k_plain, bound_ms=k_bound, bound_by=k_by,
-                               max_abs_err=k_err, ok=k_err == 0.0)
-            log(f"{'':10s}  the msda_xdot kernel alone: {k_ms:8.4f} ms/call, bound "
-                f"{k_bound:.4f} ms ({k_by}), plain {k_plain:.3f} ms, max|delta| {k_err:.2e}")
-            del G, k_outs, k_refs
         del outs, refs
         torch.cuda.empty_cache()
     bad = [v for v, r in results.items() if not r["ok"]]
-    if xdot_kernel is not None and not xdot_kernel["ok"]:
-        bad.append("msda_xdot")
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
-    return results, calls, xdot_kernel
+    return results, calls
+
+
+def kinds_ab(dtype=torch.bfloat16, device=None, log=print):
+    """The tiled and the general `msda_onlyg` kernel (`msda_cuda.ONLYG_KINDS`)
+    on the same inputs at the TPU script's shapes, and the `msda_xdot`
+    kernel on G made before: each held against its plain version, then
+    timed (the onlyg kinds in turns: tiled, general, general, tiled; ms: the
+    lower of a kind's two CUDA-event medians, which include the wrapper's
+    host work before the launch) and in device time (torch.profiler).
+    Returns ({"msda_onlyg_<kind>" or "msda_xdot": numbers}, card calls by
+    the same keys). Raises if any output disagrees."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("the timing mode measures the card; on the CPU run --check")
+    x = make_inputs(BENCH_SHAPES, **BENCH_DIMS, dtype=dtype, device=device, seed=0, lo=0.0,
+                    hi=1.0)
+    G = msda_ablation.dense_plane(x["value"], x["g"])
+    # each call samples elsewhere, as in bench (onlyg reads no location)
+    cycle = itertools.cycle([x["loc"] + 1e-4 * i for i in range(ITERS + WARMUP)])
+    calls = Counter()
+
+    def onlyg(kind):
+        return lambda loc: msda_cuda._launch_onlyg(kind, x["value"], x["shapes"], loc, x["attn"],
+                                                   x["g"])
+
+    ops = {  # key: (launch(loc), plain(), output names, route)
+        **{f"msda_onlyg_{kind}": (onlyg(kind), lambda: msda_ablation.onlyg_torch(
+            x["value"], x["shapes"], x["loc"], x["attn"], x["g"]), ROUTES["onlyg"][2], "onlyg")
+           for kind in msda_cuda.ONLYG_KINDS},
+        "msda_xdot": (lambda loc: msda_cuda.ms_deform_attn_xdot_cuda(G, x["shapes"], loc,
+                                                                     x["attn"]),
+                      lambda: msda_ablation.xdot_torch(G, x["shapes"], x["loc"], x["attn"]),
+                      ("dpy", "dpx", "daw", "ws"), "xdot"),
+    }
+
+    def counted(key, loc):
+        calls[key] += 1
+        return ops[key][0](loc)
+
+    def timed(key):
+        return median_ms(lambda: counted(key, next(cycle)), ITERS, WARMUP)
+
+    times = {key: [] for key in ops}
+    tiled, general = (f"msda_onlyg_{kind}" for kind in msda_cuda.ONLYG_KINDS)
+    for key in (tiled, general, general, tiled, "msda_xdot"):
+        times[key].append(timed(key))
+    results, bad, refs = {}, [], {}
+    for key, (_, plain, names, route) in ops.items():
+        if route not in refs:
+            refs[route] = (plain(), median_ms(plain, iters=1, warmup=0))
+        ref, plain_ms = refs[route]
+        outs = counted(key, x["loc"])
+        torch.cuda.synchronize()
+        errs = held(names, outs, ref, tolerances(route, outs, dtype) if route == "onlyg" else {})
+        dev = device_ms(lambda: counted(key, next(cycle)), ITERS, WARMUP)
+        bound, by = (variant_bound("onlyg", x, outs) if route == "onlyg"
+                     else xdot_kernel_bound(x, G, outs))
+        r = results[key] = dict(ms=min(times[key]), device_ms=dev, plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by, library_ms=None,
+                                max_abs_err=max(e[1] for e in errs),
+                                max_rel_err=max(e[2] for e in errs), ok=all(e[4] for e in errs))
+        if route == "onlyg":
+            r["library_ms"] = median_ms(lambda: onlyg_library(x), ITERS, WARMUP)
+            r["library_device_ms"] = device_ms(lambda: onlyg_library(x), ITERS, WARMUP)
+            # what the dv tolerance must reject: a kernel that skips round_T
+            r["unrounded_rel"] = onlyg_unrounded_rel(x["value"], x["g"], ref[0])
+        else:
+            r["sector_ms"] = xdot_sector_ms(x, G, outs)
+        log(f"{key:18s}: {r['ms']:.4f} ms/call (CUDA events, as launched), device "
+            f"{'not measured' if dev is None else f'{dev:.4f}'} ms, bound "
+            f"{bound:.4f} ms ({by}), plain {plain_ms:.3f} ms"
+            + (f", two torch.matmul {r['library_ms']:.4f} ms (device "
+               f"{r['library_device_ms'] or float('nan'):.4f})" if route == "onlyg"
+               else f", G in 32-byte sectors {r['sector_ms']:.4f} ms (an estimate)")
+            + ", max|delta| vs plain " + ", ".join(f"{n} {e:.2e} (rel {rel:.1e}, tol {t:.1e})"
+                                                  for n, e, rel, t, _ in errs)
+            + (f"; dv with G unrounded: rel {r['unrounded_rel']:.1e}" if route == "onlyg"
+               else "")
+            + ("" if r["ok"] else "  MISMATCH"))
+        if not r["ok"]:
+            bad.append(key)
+        del outs
+    del refs
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    return results, calls
 
 
 def card_launches(calls: Counter) -> Counter:
-    """The kernel launches that check's or bench's card calls (by variant,
-    and "xdot_kernel" for `msda_xdot` timed alone) made."""
+    """The kernel launches that check's or bench's card calls (by variant)
+    made."""
     out = Counter()
     for variant, n in calls.items():
-        out["msda_xdot" if variant == "xdot_kernel" else ROUTES[VARIANTS[variant][0]][0]] += n
+        out[ROUTES[VARIANTS[variant][0]][0]] += n
     return out
 
 
@@ -320,6 +460,8 @@ def main(argv=None):
     parser.add_argument("--check", action="store_true",
                         help="hold each variant's kernel against its plain version")
     parser.add_argument("--fp32", action="store_true", help="time in float32 (default bf16)")
+    parser.add_argument("--kinds", action="store_true",
+                        help="time the tiled and the general onlyg kernel, and the xdot kernel")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu (--check only)")
     parser.add_argument("variants", nargs="*", metavar="variant",
                         help="any of: " + " ".join(VARIANTS))
@@ -331,8 +473,11 @@ def main(argv=None):
         for dtype in (torch.float32, torch.bfloat16):
             check(args.variants or CHECK_DEFAULT, dtype, args.device)
         return
-    bench(args.variants or TIMED_DEFAULT, torch.float32 if args.fp32 else torch.bfloat16,
-          args.device)
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    if args.kinds:
+        kinds_ab(dtype, args.device)
+        return
+    bench(args.variants or TIMED_DEFAULT, dtype, args.device)
 
 
 if __name__ == "__main__":
