@@ -38,10 +38,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      (B=16, M=8, D=32, Lq=S=1045), each against its plain version (the
      ablation backward `msda_ablate_bwd`, the dense `msda_onlyg`, the
      `xdot` variant with `msda_xdot`, and the design variants through the
-     landed kernels), and the lane-slice and gather probes time their
-     kernels (exact; device time from the profiler) beside `torch.mul` /
-     `torch.gather`; each kernel's launches must equal the calls the entry
-     points made, and the phase's wall clock is logged. Then the bench's
+     landed kernels), and the lane-slice and gather probes hold both
+     kinds of their kernels bit for bit against the probes' numpy
+     expressions and time them in turns (vec4 and general at the probe's
+     Q = 1048 and at the MSDA call site's Q = 16 x 1048, beside an empty
+     kernel on vec4's grid, the launch floor; staged and general at every
+     gather case along the last axis, the general kernel alone along the
+     other; device time from the profiler) beside `torch.mul` /
+     `torch.gather`, and print their kernels' ptxas lines; each kernel's
+     launches must equal the calls the entry points made, by kind, and
+     the phase's wall clock is logged. Then the bench's
      --check mode holds every variant's kernel against its plain version at
      the TPU check shapes in float32 and bf16 (launches checked, not
      counted), and its --kinds mode times the tiled and the general
@@ -185,8 +191,8 @@ RESEARCH = {
     "probe_lane_slice": msda_cuda.lane_slice_cuda,
     "probe_gather": msda_cuda.take_along_axis_cuda,
 }
-#: the ops whose wrappers pick a staged (onlyg: tiled) or a general kernel,
-#: and the counts of each kernel's launches
+#: the ops whose wrappers pick a staged (onlyg: tiled; the lane slice: vec4)
+#: or a general kernel, and the counts of each kernel's launches
 VARIANTS = {
     "msda_fwd": {"staged": msda_cuda.FWD_STAGED, "general": msda_cuda.FWD_GENERAL},
     "msda_bwd": {"staged": msda_cuda.BWD_STAGED, "general": msda_cuda.BWD_GENERAL},
@@ -194,6 +200,8 @@ VARIANTS = {
     "msda_fac_bwd": {"staged": msda_cuda.FAC_BWD_STAGED, "general": msda_cuda.FAC_BWD_GENERAL},
     "msda_ablate_bwd": {"staged": msda_cuda.ABLATE_STAGED, "general": msda_cuda.ABLATE_GENERAL},
     "msda_onlyg": {"tiled": msda_cuda.ONLYG_TILED, "general": msda_cuda.ONLYG_GENERAL},
+    "probe_lane_slice": {"vec4": msda_cuda.LANE_VEC4, "general": msda_cuda.LANE_GENERAL},
+    "probe_gather": {"staged": msda_cuda.GATHER_STAGED, "general": msda_cuda.GATHER_GENERAL},
 }
 #: every kernel wrapper by its kernel's name; each counts its launches (the
 #: VARIANTS ops' wrappers count both their kernels, `<op>_<kind>` each one)
@@ -721,10 +729,15 @@ def research_phase():
             made[name] = made.get(name, 0) + n
     lane = probe_dynamic_lane_slice.run("cuda", log=log)
     gathers = probe_gather.run("cuda", log=log)
-    made["probe_lane_slice"] = lane["calls"]
-    made["probe_gather"] = sum(r["calls"] for r in gathers)
+    # the probes time both kinds of their kernels: their launches by kind
+    probe_calls = sum((r["calls_by_kind"] for r in gathers), lane["calls_by_kind"])
+    for op in ("probe_lane_slice", "probe_gather"):
+        probe_calls[op] = sum(n for k, n in probe_calls.items() if k.startswith(op + "_"))
+    for line in ptxas_lines(msda_cuda.ptxas_report()):
+        if "probe_" in line:
+            log(f"[probes] {line}")
     counts = read_counts()
-    want = expected(staged(made))
+    want = expected({**staged(made), **probe_calls})
     log(f"[ablation] launches of the research path: {json.dumps(counts)}")
     if counts != want:
         raise AssertionError(f"research path: launches {counts}, expected {want}")
@@ -757,10 +770,47 @@ def research_phase():
                 kinds=kinds)
 
 
+def probe_rows(numbers, by_path):
+    """The `kernels` JSON rows of the probes' kernels, one a kind, from
+    phase 3d's numbers: the lane slice's at the MSDA call site's shape
+    (each case, the launch floor beside, under `cases`), the gather's at
+    its largest case (every case it takes under `cases`)."""
+    src = "uvhand_tpu_torch/ops/csrc/"
+    lane, gathers = numbers["lane"], numbers["gathers"]
+    keys = ("ms", "launched_ms")
+
+    def row(name, kernel, nums, err, **extra):
+        return {"name": name, "route": "cuda", "source": src + kernel + ".cu",
+                "launches": numbers["launches"][name], "launches_by_path": by_path(name),
+                "max_abs_err": err, **{k: nums[k] for k in keys}, "dtype": "float32", **extra}
+
+    rows = []
+    site = lane["cases"][-1]
+    for kind in msda_cuda.LANE_SLICE_KINDS:
+        rows.append(row(
+            f"probe_lane_slice_{kind}", "probe_lane_slice", site["kinds"][kind],
+            lane["max_abs_err"], replaces="scripts/probe_dynamic_lane_slice.py:39",
+            **{k: site[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms", "floor_ms")},
+            case=site["case"], cases={c["case"]: {
+                **{k: c[k] for k in ("bound_ms", "floor_ms", "plain_ms", "library_ms")},
+                **c["kinds"][kind]} for c in lane["cases"]}))
+    biggest = max(gathers, key=lambda r: r["bound_ms"])
+    for kind in msda_cuda.GATHER_KINDS:
+        rows.append(row(
+            f"probe_gather_{kind}", "probe_gather", biggest["kinds"][kind],
+            max(r["max_abs_err"] for r in gathers),
+            replaces="scripts/repro_dynamic_gather.py:31, scripts/probe_gather_scale.py:28",
+            **{k: biggest[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+            case=biggest["case"], cases={r["case"]: {
+                **{k: r[k] for k in ("bound_ms", "plain_ms", "library_ms")},
+                **r["kinds"][kind]} for r in gathers if kind in r["kinds"]}))
+    return rows
+
+
 def research_rows(numbers, by_path):
     """The `kernels` JSON rows of the research kernels from phase 3d's
     numbers; `by_path(name)` gives a kernel's launches on every path."""
-    ablation, lane, gathers = numbers["ablation"], numbers["lane"], numbers["gathers"]
+    ablation = numbers["ablation"]
     src = "uvhand_tpu_torch/ops/csrc/"
     bench_script = "scripts/bench_msda_ablation.py"
 
@@ -805,7 +855,6 @@ def research_rows(numbers, by_path):
                     "unrounded_rel_bf16": bf["unrounded_rel"]})}
 
     bf16 = ablation["bf16"]
-    biggest = max(gathers, key=lambda r: r["bound_ms"])
     return [
         row("msda_ablate_bwd", bf16["full"], fp32_err("msda_ablate_bwd"),
             source=src + "msda_bwd.cu (entry msda_ablate_bwd)",
@@ -813,16 +862,7 @@ def research_rows(numbers, by_path):
                      "eqred, nodpy, nodaw, nodv)",
             dtype="bfloat16", ms_by_variant=variants_ms("msda_ablate_bwd")),
         *(kind_row(name) for name in ("msda_onlyg_tiled", "msda_onlyg_general", "msda_xdot")),
-        row("probe_lane_slice", lane, lane["max_abs_err"], source=src + "probe_lane_slice.cu",
-            replaces="scripts/probe_dynamic_lane_slice.py:39", dtype="float32",
-            launched_ms=lane["launched_ms"]),
-        row("probe_gather", biggest, max(r["max_abs_err"] for r in gathers),
-            source=src + "probe_gather.cu",
-            replaces="scripts/repro_dynamic_gather.py:31, scripts/probe_gather_scale.py:28",
-            dtype="float32", case=biggest["case"],
-            cases={r["case"]: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                 "gelem_per_s", "launched_ms")}
-                   for r in gathers}),
+        *probe_rows(numbers, by_path),
     ]
 
 
@@ -1719,9 +1759,12 @@ def main() -> int:
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
-        "for the probes (probe_gather: its largest case, every case under cases; the probes' "
-        "ms, plain_ms and library_ms are device time from the profiler, launched_ms the time "
-        "as launched from CUDA events); msda_onlyg_* and msda_xdot: from --kinds (ms: CUDA "
+        "for the probes (probe_lane_slice_*: the MSDA call site's Q = 16 x 1048, both cases "
+        "under cases, floor_ms an empty kernel on vec4's grid; probe_gather_*: its largest case, "
+        "every case the kind takes under cases; the probes' ms, plain_ms, library_ms and "
+        "floor_ms are device time from the profiler, the kinds the lower of two turns, "
+        "launched_ms the time as launched from CUDA events); msda_onlyg_* and msda_xdot: from "
+        "--kinds (ms: CUDA "
         "events as launched, for the onlyg kinds the lower of two medians in turns; device_ms: "
         "the profiler's device time a call, the wrapper's output fills included; *_fp32 "
         "beside); launches are phase 3d's (the research path: msda_onlyg_general none), 0 on "

@@ -39,7 +39,9 @@ in bfloat16: there the tensor cores sum G in another order, so a G entry
 can round to a neighbouring bf16 of the plain version's (7e-5 to 1.8e-4 of
 dvalue's max measured on the H100), while a kernel that skipped rounding G
 to bf16 would be off by more than the limit; each such case checks that
-too. The probes exact.
+too. The probes exact: each kind of each probe's kernel (the gather's
+staged and general, the lane slice's vec4 and general) bit-identical to its
+plain version, out-of-range gather indices NaN in both gather kernels.
 """
 
 import pytest
@@ -623,6 +625,112 @@ def test_gather_kernel_matches_plain(cuda, shape, axis):
     assert torch.equal(got, probes.take_along_axis_torch(v, idx, axis))
     idx.view(-1)[0] = shape[axis]  # out of range: NaN, never a read outside v
     assert torch.isnan(msda_cuda.take_along_axis_cuda(v, idx, axis).view(-1)[0])
+
+
+def lane_input(Q, MW, cuda, offset=0):
+    """x (Q, MW), `offset` floats into its storage (1: off 16 bytes)."""
+    gen = torch.Generator(device=cuda).manual_seed(Q)
+    base = torch.randn(Q * MW + 4, generator=gen, device=cuda)
+    return base[offset:offset + Q * MW].view(Q, MW)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,M,W,offset,plan", [
+    (1048, 8, 16, 0, "vec4"),  # the probe's shape
+    (16 * 1048, 8, 16, 0, "vec4"),  # the MSDA call site's, B = 16
+    (1049, 8, 16, 0, "vec4"),  # Q that no tile or wave divides
+    (7, 3, 4, 0, "vec4"),  # fewer vectors than a block
+    (1048, 8, 16, 1, "general"),  # x off 16 bytes
+    (1048, 8, 6, 0, "general"),  # W % 4 != 0
+], ids=str)
+def test_lane_slice_kinds_match_plain(cuda, Q, M, W, offset, plan):
+    x = lane_input(Q, M * W, cuda, offset)
+    want = probes.lane_slice_torch(x, M, W)
+    kinds = msda_cuda.LANE_SLICE_KINDS
+    before = {k: c.launches for k, c in kinds.items()}
+    got = msda_cuda.lane_slice_cuda(x, M, W)
+    torch.cuda.synchronize()
+    assert {k: c.launches - before[k] for k, c in kinds.items()} == {
+        k: int(k == plan) for k in kinds}
+    assert torch.equal(got, want)
+    assert torch.equal(msda_cuda._launch_lane_slice("general", x, M, W), want)
+    if plan == "vec4":
+        assert torch.equal(msda_cuda._launch_lane_slice("vec4", x, M, W), want)
+        msda_cuda.lane_slice_floor_cuda(x, M, W)  # the empty kernel launches
+        torch.cuda.synchronize()
+    else:
+        with pytest.raises(ValueError, match="vec4 lane-slice kernel takes"):
+            msda_cuda._launch_lane_slice("vec4", x, M, W)
+
+
+def gather_inputs(shape, axis, cuda, offset=0):
+    """v (normal) and idx (uniform over the gathered axis) of `shape`, each
+    `offset` elements into its storage."""
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) * 1000 + shape[-1])
+    n = 1
+    for s in shape:
+        n *= s
+    v = torch.randn(n + 4, generator=gen, device=cuda)[offset:offset + n].view(shape)
+    idx = torch.randint(0, shape[axis], (n + 4,), generator=gen, device=cuda,
+                        dtype=torch.int32)[offset:offset + n].view(shape)
+    return v, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis,offset,plan,takes_staged", [
+    # the probes' cases (the largest cut to 8 of its 16 blocks: 2096 chunks
+    # of 4 rows, more than blocks x ring stages); under 2 MiB of values the
+    # plan picks the general kernel, and the staged one is launched by name
+    ((1408, 128), 0, 0, "general", False), ((1408, 128), 1, 0, "general", True),
+    ((8, 1048, 128), 2, 0, "staged", True), ((1, 1048, 256), 2, 0, "general", True),
+    ((1, 1048, 1408), 2, 0, "staged", True), ((8, 1048, 1408), 2, 0, "staged", True),
+    ((128, 8, 128), 2, 0, "general", True),
+    # a last chunk of one row (1049 = 262 x 4 + 1: a ring one stage full);
+    # of 3 of 4 rows with 2-3 chunks a block; of 5 of 6 rows
+    ((1, 1049, 1408), 2, 0, "staged", True), ((3, 1049, 1408), 2, 0, "staged", True),
+    ((1, 1403, 128), 2, 0, "general", True),
+    # fewer chunks than a block's ring; one row; rings of two and three stages
+    ((1, 3, 128), 2, 0, "general", True), ((1, 1, 4), 2, 0, "general", True),
+    ((2, 3, 29_052), 2, 0, "general", True), ((1, 5, 14_528), 2, 0, "general", True),
+    # what the staged kernel does not take
+    ((2, 300, 128), 2, 1, "general", False), ((8, 100, 130), 2, 0, "general", False),
+    ((2, 3, 29_056), 2, 0, "general", False), ((3, 40, 1408), 1, 0, "general", False),
+], ids=str)
+def test_gather_kinds_match_plain(cuda, shape, axis, offset, plan, takes_staged):
+    v, idx = gather_inputs(shape, axis, cuda, offset)
+    want = probes.take_along_axis_torch(v, idx, axis)
+    kinds = msda_cuda.GATHER_KINDS
+    before = {k: c.launches for k, c in kinds.items()}
+    got = msda_cuda.take_along_axis_cuda(v, idx, axis)
+    torch.cuda.synchronize()
+    assert {k: c.launches - before[k] for k, c in kinds.items()} == {
+        k: int(k == plan) for k in kinds}
+    assert torch.equal(got, want)
+    assert torch.equal(msda_cuda._launch_gather("general", v, idx, axis), want)
+    if takes_staged:
+        assert torch.equal(msda_cuda._launch_gather("staged", v, idx, axis), want)
+    else:
+        with pytest.raises(ValueError, match="staged gather kernel takes"):
+            msda_cuda._launch_gather("staged", v, idx, axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(msda_cuda.GATHER_KINDS))
+def test_gather_kinds_give_nan_for_out_of_range_indices(cuda, kind):
+    """An index out of range (negative, or at or past the row's end) gives
+    NaN, never a read outside the row; the rest stay exact."""
+    shape = (2, 37, 128)
+    v, idx = gather_inputs(shape, 2, cuda)
+    bad = torch.zeros(shape, dtype=torch.bool, device=cuda)
+    for n, r, c, j in ((0, 0, 0, -1), (0, 5, 17, 128), (1, 36, 127, 1 << 30),
+                       (1, 20, 64, -(1 << 30))):
+        idx[n, r, c] = j
+        bad[n, r, c] = True
+    got = msda_cuda._launch_gather(kind, v, idx, 2)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[bad]).all() and not torch.isnan(got[~bad]).any()
+    want = probes.take_along_axis_torch(v, idx.clamp(0, 127), 2)
+    assert torch.equal(got[~bad], want[~bad])
 
 
 @pytest.mark.cuda

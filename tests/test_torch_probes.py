@@ -31,6 +31,18 @@ def test_lane_slice_matches_the_probe_reference():
     assert out.shape == (M * Q, W) and np.array_equal(out, want)
 
 
+@pytest.mark.parametrize("Q", [4 * 1048, 4 * 1048 + 3], ids=str)
+def test_lane_slice_matches_the_probe_reference_at_the_call_site(Q):
+    """The MSDA call site's per-head relayout (the probe's second case, Q =
+    16 x 1048 at B = 16), cut to B = 4, and a Q that no tile divides."""
+    M, W = probe_dynamic_lane_slice.M, probe_dynamic_lane_slice.W
+    assert probe_dynamic_lane_slice.CASES[1][1] == 16 * 1048
+    x = np.random.default_rng(1).standard_normal((Q, M * W)).astype(np.float32)
+    out = probes.lane_slice_torch(torch.from_numpy(x), M, W).numpy()
+    want = (x.reshape(Q, M, W).transpose(1, 0, 2).reshape(M * Q, W)) * 2.0
+    assert out.shape == (M * Q, W) and np.array_equal(out, want)
+
+
 @pytest.mark.parametrize("name,shape,axis", CASES, ids=lambda x: str(x))
 def test_take_along_axis_matches_numpy(name, shape, axis):
     v, idx = probe_gather.case_arrays(shape, axis)

@@ -39,8 +39,9 @@ backwards' and ablation's wrappers count every launch, and `FWD_STAGED`,
 `FWD_GENERAL`, `BWD_STAGED`, `BWD_GENERAL`, `FAC_FWD_STAGED`,
 `FAC_FWD_GENERAL`, `FAC_BWD_STAGED`, `FAC_BWD_GENERAL`, `ABLATE_STAGED`,
 `ABLATE_GENERAL` count them by kernel, and so do `ONLYG_TILED` and
-`ONLYG_GENERAL` (`msda_onlyg.cu`'s kernels, chosen by `onlyg_plan`). The
-compiler's report of each
+`ONLYG_GENERAL` (`msda_onlyg.cu`'s kernels, chosen by `onlyg_plan`), the
+probes' `GATHER_STAGED` and `GATHER_GENERAL` (`gather_plan`) and `LANE_VEC4`
+and `LANE_GENERAL` (`lane_slice_plan`). The compiler's report of each
 kernel's registers, shared memory and spills (`-Xptxas -v`) is kept beside
 the library (`ptxas_report()`).
 """
@@ -142,6 +143,69 @@ ABLATE_STAGED, ABLATE_GENERAL = LaunchCount(), LaunchCount()
 ONLYG_TILED, ONLYG_GENERAL = LaunchCount(), LaunchCount()
 #: the `msda_onlyg` kernels by the kind `onlyg_plan` names
 ONLYG_KINDS = {"tiled": ONLYG_TILED, "general": ONLYG_GENERAL}
+GATHER_STAGED, GATHER_GENERAL = LaunchCount(), LaunchCount()
+#: the gather probe's kernels by the kind `gather_plan` names
+GATHER_KINDS = {"staged": GATHER_STAGED, "general": GATHER_GENERAL}
+LANE_VEC4, LANE_GENERAL = LaunchCount(), LaunchCount()
+#: the lane-slice probe's kernels by the kind `lane_slice_plan` names
+LANE_SLICE_KINDS = {"vec4": LANE_VEC4, "general": LANE_GENERAL}
+
+#: the staged gather's ring: a stage holds at most this many bytes of rows
+#: (one row where a row is larger), and the ring `GATHER_RING` stages, fewer
+#: (at least 2) where they would not fit SMEM_LIMIT
+GATHER_STAGE_BYTES = 24 * 1024
+GATHER_RING = 4
+#: the values' bytes from which the plan picks the staged gather kernel.
+#: Below, a call is paced by its launch, and the staged kernel's chain
+#: (barrier set-up, one copy's latency, then the gather) is the longer: on
+#: an H100 it took 0.3-0.5 us more than the general kernel at 0.5-1.1 MB of
+#: values (2.2 against 1.7-2.0 us) and 1.2 us less at 4.3 MB
+GATHER_STAGED_MIN_BYTES = 2 << 20
+
+
+class GatherPlan(NamedTuple):
+    """The gather probe's kernel for a call, `kind` 'staged' or 'general',
+    and the staged kernel's launch wherever it takes the shapes (else 0s,
+    and the kind is 'general'): the rows of a ring stage, the ring's stages
+    and the block's dynamic shared memory in bytes (the ring and one 8-byte
+    mbarrier a stage)."""
+    kind: str
+    chunk_rows: int = 0
+    stages: int = 0
+    smem: int = 0
+
+
+def gather_plan(shape: Tuple[int, int, int], axis: int, aligned: bool = True,
+                sms: int = 132) -> GatherPlan:
+    """The gather kernel for `take_along_axis` on the (N, R, C) view `shape`
+    along `axis` (1 or 2). The staged kernel takes axis 2 where C % 4 == 0
+    (rows of whole 16-byte vectors, as TMA copies and the vector loads
+    need), v, idx and out are 16-byte aligned (`aligned`) and a ring of two
+    rows fits SMEM_LIMIT (C up to 29,052); the plan picks it where it takes
+    the shapes and v holds at least GATHER_STAGED_MIN_BYTES, else the
+    general kernel. A stage takes as many rows as GATHER_STAGE_BYTES holds,
+    fewer where that would leave under two chunks for each of the card's
+    `sms` SMs. Axis 1 is general: a staged strip would hold all R rows of a
+    few columns, and at the probes' shapes that leaves 4-16 blocks for the
+    card, each reading its strip once."""
+    N, R, C = shape
+    if axis != 2 or C % 4 or not aligned:
+        return GatherPlan("general")
+    rows = N * R
+    chunk = max(1, min(GATHER_STAGE_BYTES // (4 * C), -(-rows // (2 * sms))))
+    for stages in range(GATHER_RING, 1, -1):
+        smem = stages * (chunk * C * 4 + 8)
+        if smem <= SMEM_LIMIT:
+            kind = "staged" if rows * C * 4 >= GATHER_STAGED_MIN_BYTES else "general"
+            return GatherPlan(kind, chunk, stages, smem)
+    return GatherPlan("general")
+
+
+def lane_slice_plan(Q: int, M: int, W: int, aligned: bool = True) -> str:
+    """The lane-slice kernel for x (Q, M*W): 'vec4' (16-byte vectors) where
+    W % 4 == 0, x and out are 16-byte aligned (`aligned`) and the M*Q*W/4
+    vectors fit an int32, else 'general'."""
+    return "vec4" if W % 4 == 0 and aligned and M * Q * (W // 4) < 2 ** 31 else "general"
 
 
 def _nvcc() -> str:
@@ -221,10 +285,13 @@ def library() -> ctypes.CDLL:
     lib.msda_xdot.argtypes = [vp, vp, vp, vp, vp, vp, vp, ip, ip, ci, ci, ci, ci, ci, ci, ci, ci,
                               vp]
     lib.msda_xdot.restype = ci
-    lib.probe_lane_slice.argtypes = [vp, vp, ci, ci, ci, ci, vp]
-    lib.probe_lane_slice.restype = ci
+    for entry in ("probe_lane_slice", "probe_lane_slice_vec4", "probe_lane_slice_floor"):
+        getattr(lib, entry).argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        getattr(lib, entry).restype = ci
     lib.probe_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.probe_gather.restype = ci
+    lib.probe_gather_staged.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.probe_gather_staged.restype = ci
     lib.msda_error_string.argtypes = [ci]
     lib.msda_error_string.restype = ctypes.c_char_p
     lib.ptxas_report = so.with_suffix(".ptxas.txt")
@@ -665,20 +732,41 @@ def _check_probe(named, dtypes):
             raise ValueError(f"{name} is on {t.device}, {named[0][0]} on {named[0][1].device}")
 
 
+
+
 def lane_slice_cuda(x: torch.Tensor, M: int, W: int) -> torch.Tensor:
-    """Launch the lane-slice probe (`csrc/probe_lane_slice.cu`): x (Q, M*W)
-    float32 -> out (M*Q, W), out[m*Q + q, w] = 2 * x[q, m*W + w], as the
-    plain version `probes.lane_slice_torch`. Raises on any input the kernel
-    does not take, and when the launch is refused."""
+    """Launch the lane-slice probe (`csrc/probe_lane_slice.cu`), the kernel
+    `lane_slice_plan` picks ('vec4' or 'general'): x (Q, M*W) float32 ->
+    out (M*Q, W), out[m*Q + q, w] = 2 * x[q, m*W + w], as the plain version
+    `probes.lane_slice_torch`. Raises on any input the kernel does not take,
+    and when the launch is refused."""
+    return _launch_lane_slice(None, x, M, W)
+
+
+def _lane_slice_out(x, M, W):
+    """The checks of x, and the lane slice's output (M*Q, W), unwritten."""
     _check_probe([("x", x)], [torch.float32])
     if x.dim() != 2 or x.shape[1] != M * W:
         raise ValueError(f"x must be (Q, M*W) = (Q, {M * W}), got {tuple(x.shape)}")
+    return torch.empty(M * x.shape[0], W, dtype=torch.float32, device=x.device)
+
+
+def _launch_lane_slice(kind, x, M, W):
+    """`lane_slice_cuda` through the kernel of `kind` (None: the plan's); the
+    probe passes each kind to time both on the same inputs."""
+    out = _lane_slice_out(x, M, W)
     Q = x.shape[0]
+    plan = lane_slice_plan(Q, M, W, aligned=x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    kind = kind or plan
+    if kind == "vec4" and plan != "vec4":
+        raise ValueError("the vec4 lane-slice kernel takes W % 4 == 0 and a 16-byte aligned x "
+                         "(see lane_slice_plan)")
     lib = library()
-    out = torch.empty(M * Q, W, dtype=torch.float32, device=x.device)
-    err = lib.probe_lane_slice(x.data_ptr(), out.data_ptr(), Q, M, W, x.device.index,
-                               torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "lane-slice probe")
+    entry = "probe_lane_slice_vec4" if kind == "vec4" else "probe_lane_slice"
+    err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), Q, M, W, x.device.index,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, f"{kind} lane-slice probe")
+    LANE_SLICE_KINDS[kind].launches += 1
     lane_slice_cuda.launches += 1
     return out
 
@@ -686,13 +774,36 @@ def lane_slice_cuda(x: torch.Tensor, M: int, W: int) -> torch.Tensor:
 lane_slice_cuda.launches = 0
 
 
+def lane_slice_floor_cuda(x: torch.Tensor, M: int, W: int) -> torch.Tensor:
+    """Launch an empty kernel on the vec4 lane-slice kernel's grid and block
+    for these arguments: the least device time a launch of it takes. A
+    yardstick, not a probe: it computes nothing and returns the unwritten
+    output. Raises where the vec4 kernel does not apply."""
+    out = _lane_slice_out(x, M, W)
+    if lane_slice_plan(x.shape[0], M, W, aligned=x.data_ptr() % 16 == 0) != "vec4":
+        raise ValueError("the launch floor is the vec4 kernel's: see lane_slice_plan")
+    lib = library()
+    err = lib.probe_lane_slice_floor(x.data_ptr(), out.data_ptr(), x.shape[0], M, W,
+                                     x.device.index,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, "empty (launch floor)")
+    return out
+
+
 def take_along_axis_cuda(v: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
-    """Launch the gather probe (`csrc/probe_gather.cu`):
+    """Launch the gather probe (`csrc/probe_gather.cu`), the kernel
+    `gather_plan` picks ('staged' or 'general'):
     `take_along_axis(v, idx, axis)` for float32 v and int32 idx of one shape,
     2-D (axis 0 or 1) or 3-D (axis 1 or 2, negative axes counted from the
     end), as the plain version `probes.take_along_axis_torch`. Indices must
     be in range (out of range gives NaN). Raises on any input the kernel
     does not take, and when the launch is refused."""
+    return _launch_gather(None, v, idx, axis)
+
+
+def _launch_gather(kind, v, idx, axis):
+    """`take_along_axis_cuda` through the kernel of `kind` (None: the
+    plan's); the probe passes each kind to time both on the same inputs."""
     _check_probe([("v", v), ("idx", idx)], [torch.float32, torch.int32])
     if v.dim() not in (2, 3) or idx.shape != v.shape:
         raise ValueError(f"v and idx must share one 2-D or 3-D shape, got {tuple(v.shape)} "
@@ -702,11 +813,25 @@ def take_along_axis_cuda(v: torch.Tensor, idx: torch.Tensor, axis: int) -> torch
         raise ValueError(f"axis {axis} of a {v.dim()}-D array: the kernel gathers along the "
                          f"last two axes")
     N, R, C = (1,) * (3 - v.dim()) + tuple(v.shape)
-    lib = library()
     out = torch.empty_like(v)
-    err = lib.probe_gather(v.data_ptr(), idx.data_ptr(), out.data_ptr(), N, R, C, ax,
-                           v.device.index, torch.cuda.current_stream(v.device).cuda_stream)
-    _raise_on(lib, err, "gather probe")
+    plan = gather_plan((N, R, C), ax, aligned=all(t.data_ptr() % 16 == 0 for t in (v, idx, out)),
+                       sms=torch.cuda.get_device_properties(v.device).multi_processor_count)
+    kind = kind or plan.kind
+    if kind == "staged" and not plan.stages:
+        raise ValueError("the staged gather kernel takes the last axis in rows of whole 16-byte "
+                         "vectors, 16-byte aligned v and idx, and a ring of two rows in shared "
+                         "memory (see gather_plan)")
+    lib = library()
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    if kind == "staged":
+        err = lib.probe_gather_staged(v.data_ptr(), idx.data_ptr(), out.data_ptr(), N, R, C,
+                                      plan.chunk_rows, plan.stages, plan.smem, v.device.index,
+                                      stream)
+    else:
+        err = lib.probe_gather(v.data_ptr(), idx.data_ptr(), out.data_ptr(), N, R, C, ax,
+                               v.device.index, stream)
+    _raise_on(lib, err, f"{kind} gather probe")
+    GATHER_KINDS[kind].launches += 1
     take_along_axis_cuda.launches += 1
     return out
 

@@ -28,6 +28,13 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def lower(times):
+    """The lower of a kernel's timed turns, leaving out "not measured"
+    (None); None if none was measured."""
+    seen = [t for t in times if t is not None]
+    return min(seen) if seen else None
+
+
 def us(ms):
     """A time in ms as microseconds for a log line, or "not measured"."""
     return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
