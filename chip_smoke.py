@@ -129,7 +129,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      step; bf16 parameters stay bf16 and finite), and the device's busy
      share of a profiled batch and step;
   15. peak device memory of a full-width fp32 train step with and without
-     remat at B=16 and B=32.
+     remat at B=16 and B=32;
+  16. the CLI as a multi-process user launches it, at world size 1 (one
+     card; NCCL runs one rank a device): `python -m torch.distributed.run
+     --standalone --nproc_per_node 1 -m uvhand_tpu_torch.cli.main` on phase
+     13's root, an fp32 `--debug` epoch of 2 steps and its eval, then
+     `--eval --resume`: an NCCL process group of one process, 12 staged
+     forward launches a batch and 12 + 12 a step and no other kernel (each
+     launched process writes its counts when it exits), one writer and
+     one checkpoint, the epoch's losses within 1e-4 of the same flags run
+     in this process without the launcher (its second step starts from
+     other last bits: atomics), the epoch's scores equal bit for bit to the
+     launched resumed eval's and to this process's eval of the checkpoint;
+  17. the port's bench (`python -m uvhand_tpu_torch.bench`, a few steps a
+     mode): its first line the bf16 train headline, finite and > 0, every
+     other line a rate or a named skip, 12 staged forward launches a call
+     and 12 backward a train step; its lines logged beside the card.
   Phases 3 and 3b also time the forward and backward kernels on one
   enc_lite call (Lq 261, S 1045, B=16, float32) beside its bound.
 
@@ -183,14 +198,6 @@ ENC_LITE_LQ = sum(h * w for h, w in LEVELS[1:])
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
 KEYS = ("pred_logits", "pred_hand_key", "pred_obj_key")  # the outputs held end to end
-#: the research entry points' kernels (phase 3d), which no model path launches
-RESEARCH = {
-    "msda_ablate_bwd": msda_cuda.ms_deform_attn_ablate_backward_cuda,
-    "msda_onlyg": msda_cuda.ms_deform_attn_onlyg_cuda,
-    "msda_xdot": msda_cuda.ms_deform_attn_xdot_cuda,
-    "probe_lane_slice": msda_cuda.lane_slice_cuda,
-    "probe_gather": msda_cuda.take_along_axis_cuda,
-}
 #: the ops whose wrappers pick a staged (onlyg: tiled; the lane slice: vec4)
 #: or a general kernel, and the counts of each kernel's launches
 VARIANTS = {
@@ -203,16 +210,9 @@ VARIANTS = {
     "probe_lane_slice": {"vec4": msda_cuda.LANE_VEC4, "general": msda_cuda.LANE_GENERAL},
     "probe_gather": {"staged": msda_cuda.GATHER_STAGED, "general": msda_cuda.GATHER_GENERAL},
 }
-#: every kernel wrapper by its kernel's name; each counts its launches (the
-#: VARIANTS ops' wrappers count both their kernels, `<op>_<kind>` each one)
-KERNELS = {
-    "msda_fwd": msda_cuda.ms_deform_attn_cuda,
-    "msda_bwd": msda_cuda.ms_deform_attn_backward_cuda,
-    **{f"{op}_{kind}": count for op, kinds in VARIANTS.items() for kind, count in kinds.items()},
-    "msda_fac_fwd": msda_cuda.ms_deform_attn_fac_cuda,
-    "msda_fac_bwd": msda_cuda.ms_deform_attn_fac_backward_cuda,
-    **RESEARCH,
-}
+#: every kernel's launch count by name (the wrappers' counts and, for the
+#: VARIANTS ops, each kernel's: `<op>_<kind>`)
+KERNELS = msda_cuda.COUNTS
 
 
 def log(*args):
@@ -1635,6 +1635,185 @@ def cli_phase(card):
     return runs
 
 
+#: phase 16: the CLI under torch.distributed.run at world size 1, an fp32
+#: `--debug` epoch of LAUNCH_STEPS steps (and as many eval batches), then
+#: `--eval --resume` with the per-batch metrics
+LAUNCH_STEPS = 2
+LAUNCH_TIMEOUT_S = 300
+BATCH_METRIC_FLAGS = ("--eval_metrics", "aae", "mpjpe.ra", "mrrpe", "success_rate", "cdev")
+#: phase 17: the bench's steps or batches a mode, after its warm-up one
+BENCH_SCAN = 4
+BENCH_TIMEOUT_S = 420
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def launched(tag, argv, timeout_s, **env):
+    """Run `argv` from the root of the checkout as a process group of its
+    own, with UVHAND_LAUNCH_COUNTS_DIR set, so that every process of it
+    that imports the kernels writes its launches when it exits; on a
+    failure or past `timeout_s` the whole group is killed. -> (its standard
+    output, the launches summed over its processes)."""
+    counts_dir = os.path.join(CLI_DIR, "launches", tag.replace(" ", "_"))
+    shutil.rmtree(counts_dir, ignore_errors=True)
+    proc = subprocess.Popen(argv, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True,
+                            env={**os.environ, "PYTHONPATH": REPO,
+                                 msda_cuda.COUNTS_DIR_ENV: counts_dir, **env})
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise AssertionError(f"[{tag}] did not end within {timeout_s} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    if proc.returncode:
+        raise AssertionError(f"[{tag}] exited with {proc.returncode}:\n{out[-2000:]}\n"
+                             f"{err[-4000:]}")
+    counts = dict.fromkeys(KERNELS, 0)
+    if not os.path.isdir(counts_dir) or not os.listdir(counts_dir):
+        raise AssertionError(f"[{tag}] no process wrote its launches")
+    for name in os.listdir(counts_dir):
+        with open(os.path.join(counts_dir, name)) as f:
+            for k, v in json.load(f).items():
+                counts[k] += v
+    return out, counts
+
+
+def last_json_line(path):
+    with open(path) as f:
+        return json.loads(f.read().splitlines()[-1])
+
+
+def launcher_phase(card):
+    """Phase 16: the CLI as a multi-process user launches it, at world size 1
+    (the card host has one H100; NCCL runs one rank a device):
+    `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    uvhand_tpu_torch.cli.main` on phase 13's synthetic root, an fp32
+    `--debug` epoch of LAUNCH_STEPS steps and its eval, then `--eval
+    --resume` of its checkpoint. Checks: the process group is NCCL's with
+    one process; 12 staged forward launches a batch and 12 + 12 a step and
+    no other kernel (each process's counts, written when it exits); the
+    one writer's files, one checkpoint among them; the epoch's losses and
+    losses within 1e-4 (relative) of the same flags run without the
+    launcher (`cli.main.main` in this process: the backward kernel's dvalue
+    atomics and cuDNN's weight gradients are not bit-repeatable, so the
+    second step starts from other last bits, and the two models' scores
+    then differ by the argmax choices those bits move, logged); the
+    epoch's scores equal bit for bit to the launched `--resume` eval's and
+    to this process's eval of the same checkpoint.
+    Returns the launches of the two launched runs."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    data_dir = os.path.join(CLI_DIR, "data")
+    out = {tag: os.path.join(CLI_DIR, f"launch_{tag}")
+           for tag in ("train", "eval", "plain_train", "plain_eval")}
+    for path in out.values():
+        shutil.rmtree(path, ignore_errors=True)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m", "uvhand_tpu_torch.cli.main"]
+    steps = ["--num_debug", str(LAUNCH_STEPS)]
+    runs, walls = {}, {}
+
+    def run(tag, argv, want):
+        t0 = time.perf_counter()
+        stdout, counts = launched(f"torchrun {tag}", torchrun + argv, LAUNCH_TIMEOUT_S)
+        walls[tag] = time.perf_counter() - t0
+        if counts != want:
+            raise AssertionError(f"[torchrun] {tag}: launches {counts}, expected {want}")
+        topo = ("multihost: {'process_index': 0, 'process_count': 1, 'local_devices': 1, "
+                "'global_devices': 1} backend=nccl")
+        if topo not in stdout:
+            raise AssertionError(f"[torchrun] {tag}: no NCCL process group of one process in "
+                                 f"its output:\n{stdout[-2000:]}")
+        runs[tag] = counts
+
+    run("train", cli_argv(data_dir, out["train"], *steps),
+        expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}),
+                 LAUNCH_STEPS))
+    files = sorted(os.listdir(out["train"]))
+    if files != ["0", "0.meta.json", "loss.txt", "results.txt", "running_cmd.json"] or \
+            os.listdir(os.path.join(out["train"], "0")) != ["checkpoint.pth"]:
+        raise AssertionError(f"[torchrun] the writer's files: {files}")
+    run("eval --resume", cli_argv(data_dir, out["eval"], *steps, *BATCH_METRIC_FLAGS,
+                                  "--eval", "--resume", os.path.join(out["train"], "0")),
+        expected(SERVE, LAUNCH_STEPS))
+
+    # the same flags without the launcher, and this process's eval of the
+    # launched run's checkpoint
+    parse = cli.get_args_parser().parse_args
+    t0 = time.perf_counter()
+    cli.main(parse(cli_argv(data_dir, out["plain_train"], *steps)))
+    cli.main(parse(cli_argv(data_dir, out["plain_eval"], *steps, *BATCH_METRIC_FLAGS,
+                            "--eval", "--resume", os.path.join(out["train"], "0"))))
+    walls["without the launcher, both"] = time.perf_counter() - t0
+
+    def read(tag, name):
+        row = last_json_line(os.path.join(out[tag], name))
+        row.pop("epoch")
+        return row
+
+    losses, plain_losses = read("train", "loss.txt"), read("plain_train", "loss.txt")
+    rel = {k: abs(losses[k] - v) / max(abs(v), 1e-30) for k, v in plain_losses.items()}
+    if not all(r <= 1e-4 for r in rel.values()):
+        raise AssertionError(f"[torchrun] epoch losses {losses} against {plain_losses} "
+                             f"without the launcher")
+    scores = {tag: read(tag, "results.txt") for tag in ("train", "eval", "plain_eval")}
+    if not json.dumps(scores["train"]) == json.dumps(scores["eval"]) == json.dumps(
+            scores["plain_eval"]):
+        raise AssertionError(f"[torchrun] the epoch's scores, the launched resumed eval's and "
+                             f"this process's eval of the same checkpoint differ: {scores}")
+    plain_scores = read("plain_train", "results.txt")
+    moved = {k: abs(scores["train"][k] - v) / max(abs(v), 1e-30)
+             for k, v in plain_scores.items()}
+    log(f"[torchrun] world size 1 under NCCL: launches train "
+        f"{json.dumps({k: v for k, v in runs['train'].items() if v})}, eval "
+        f"{json.dumps({k: v for k, v in runs['eval --resume'].items() if v})}; one writer, "
+        f"one checkpoint; epoch losses {json.dumps(losses)}, relative to the run without the "
+        f"launcher {json.dumps(rel)} (limit 1e-4); the epoch's scores equal bit for bit to "
+        f"the launched resumed eval's and to this process's eval of that checkpoint "
+        f"{json.dumps(scores['train'])}; the run without the launcher's scores (another "
+        f"model after 2 steps: atomics) relative {json.dumps(moved)}, not checked; wall "
+        f"clock {json.dumps({k: round(v, 2) for k, v in walls.items()})} s ({card})")
+    log(f"[torchrun] phase 16 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return runs
+
+
+def bench_phase(card):
+    """Phase 17: `python -m uvhand_tpu_torch.bench` with UVHAND_BENCH_SCAN =
+    BENCH_SCAN: its first line is the bf16 train headline, finite and > 0;
+    every mode's line a rate or a named skip, none an error; launches 12
+    (+ 12 backward) a call of each mode, its warm-up included, all staged.
+    Logs its lines as the bench printed them, beside the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    stdout, counts = launched("bench", [sys.executable, "-m", "uvhand_tpu_torch.bench"],
+                              BENCH_TIMEOUT_S, UVHAND_BENCH_SCAN=str(BENCH_SCAN))
+    lines = stdout.splitlines()
+    rows = [json.loads(line) for line in lines]
+    head = rows[0]
+    if not (head.get("metric") == "train_frames_per_sec_chip" and head.get("dtype") == "bfloat16"
+            and np.isfinite(head.get("value", np.nan)) and head["value"] > 0):
+        raise AssertionError(f"[bench] the first line is not the headline: {lines[0]}")
+    timed = [r for r in rows if "value" in r]
+    bad = [r for r in rows if not ("value" in r and np.isfinite(r["value"]) and r["value"] > 0
+                                   or str(r.get("skipped", "")).startswith("not ported"))]
+    if bad or len(timed) != 6:
+        raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 6")
+    calls = 1 + BENCH_SCAN  # a mode's calls: its warm-up and the timed ones
+    want = expected(staged({"msda_fwd": 6 * MSDA_PER_FORWARD * calls,
+                            "msda_bwd": 3 * MSDA_PER_FORWARD * calls}))
+    if counts != want:
+        raise AssertionError(f"[bench] launches {counts}, expected {want}")
+    for line in lines:
+        log(f"[bench] {line} ({card})")
+    log(f"[bench] UVHAND_BENCH_SCAN={BENCH_SCAN}: launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; phase 17 took "
+        f"{time.perf_counter() - t_phase:.2f} s of wall clock")
+    return counts
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1735,6 +1914,10 @@ def main() -> int:
     option_counts = options_phase(world, batches, train_batches, card)
     remat_memory_phase(world, rng, card)
 
+    # 16. the CLI under torch.distributed.run, world size 1; 17. the bench
+    torchrun_runs = launcher_phase(card)
+    bench_counts = bench_phase(card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -1783,7 +1966,10 @@ def main() -> int:
                 **{f"cli_{tag}": n[name] for tag, n in cli_runs.items()
                    if tag.startswith(("single-stage", "bf16-params"))},
                 **{f"serve_{tag}": n[0][name] for tag, n in option_counts.items()},
-                **{f"train_{tag}": n[1][name] for tag, n in option_counts.items()}}
+                **{f"train_{tag}": n[1][name] for tag, n in option_counts.items()},
+                "cli_torchrun_train": torchrun_runs["train"][name],
+                "cli_torchrun_eval": torchrun_runs["eval --resume"][name],
+                "bench": bench_counts[name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)

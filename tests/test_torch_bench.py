@@ -1,0 +1,85 @@
+"""The port's bench (`python -m uvhand_tpu_torch.bench`) on the CPU.
+
+A tiny model (1+2 layers, d 64, FFN 128, 4 heads, 12 queries, 64x64) on a
+batch of 2, 2 steps or batches after the warm-up one: the first line is
+the bf16 train headline with the root bench's keys, every line is JSON, and
+the not-ported modes name their ROADMAP items and time nothing. Without a
+card and without `--device cpu` it raises. The numbers are CPU rates, not
+the card's; only their form is checked.
+"""
+
+import json
+import math
+
+import pytest
+import torch
+
+from uvhand_tpu_torch import bench
+
+TINY = ["--device", "cpu", "--enc_layers", "1", "--dec_layers", "2", "--hidden_dim", "64",
+        "--dim_feedforward", "128", "--nheads", "4", "--num_queries", "12", "--img_res", "64"]
+
+
+@pytest.fixture
+def bench_env(monkeypatch):
+    monkeypatch.setenv("UVHAND_BENCH_BATCH", "2")
+    monkeypatch.setenv("UVHAND_BENCH_SCAN", "2")
+    for knob in ("DTYPE", "ONLY", "INFER", "LITE", "BUDGET_S", "ENC_LITE_HI"):
+        monkeypatch.delenv(f"UVHAND_BENCH_{knob}", raising=False)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield monkeypatch
+    torch.set_num_threads(n)
+
+
+def run(capsys, argv=TINY):
+    bench.main(argv)
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+
+
+def test_headline_first_then_every_mode(bench_env, capsys):
+    lines = run(capsys)
+    head = lines[0]
+    assert head["metric"] == "train_frames_per_sec_chip" and head["unit"] == "frames/s"
+    assert head["dtype"] == "bfloat16" and head["batch"] == 2 and head["device"] == "cpu"
+    assert math.isfinite(head["value"]) and head["value"] > 0
+    assert head["vs_baseline"] == head["value"] / bench.REFERENCE_FPS_ESTIMATE
+    assert [x["metric"] for x in lines[1:]] == [
+        "train_frames_per_sec_chip_fp32", "train_frames_per_sec_chip_enc_lite",
+        "infer_frames_per_sec_chip_enc_lite", "infer_frames_per_sec_chip",
+        "train_frames_per_sec_chip_window32", "train_frames_per_sec_chip_swin",
+        "infer_frames_per_sec_chip_fp32"]
+    by = {x["metric"]: x for x in lines}
+    for name in ("window32", "swin"):
+        row = by[f"train_frames_per_sec_chip_{name}"]
+        assert "value" not in row and row["skipped"].startswith("not ported: ROADMAP Queue 1 item")
+    timed = [x for x in lines if "value" in x]
+    assert len(timed) == 6 and all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
+    assert by["infer_frames_per_sec_chip_enc_lite"]["batch"] == 8
+    assert by["infer_frames_per_sec_chip_enc_lite"]["enc_lite_hi_every"] == 6
+
+
+def test_knobs_and_the_budget(bench_env, capsys):
+    bench_env.setenv("UVHAND_BENCH_ONLY", "infer")
+    bench_env.setenv("UVHAND_BENCH_DTYPE", "float32")
+    lines = run(capsys)
+    assert [(x["metric"], x["dtype"]) for x in lines] == [("infer_frames_per_sec_chip",
+                                                           "float32")]
+    for knob in ("ONLY", "DTYPE"):
+        bench_env.delenv(f"UVHAND_BENCH_{knob}")
+    bench_env.setenv("UVHAND_BENCH_BUDGET_S", "0")
+    bench_env.setenv("UVHAND_BENCH_LITE", "0")
+    bench_env.setenv("UVHAND_BENCH_INFER", "0")
+    lines = run(capsys)
+    assert lines[0]["metric"] == "train_frames_per_sec_chip"  # the headline ignores the budget
+    assert {x["metric"]: x.get("skipped") for x in lines[1:]} == {
+        "train_frames_per_sec_chip_fp32": "budget",
+        "train_frames_per_sec_chip_window32": "not ported: ROADMAP Queue 1 item 9 (temporal)",
+        "train_frames_per_sec_chip_swin": "not ported: ROADMAP Queue 1 item 10 (Swin-L "
+                                          "backbone)"}
+
+
+def test_the_card_without_a_card_raises(bench_env, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(TINY[2:])

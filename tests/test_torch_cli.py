@@ -34,7 +34,7 @@ import torch
 
 from uvhand_tpu.cli.main import get_args_parser as jax_parser
 from uvhand_tpu.cli.main import main as jax_main
-from uvhand_tpu_torch.cli.main import get_args_parser, main
+from uvhand_tpu_torch.cli.main import check_ported, get_args_parser, main
 from uvhand_tpu_torch.data import arctic
 from uvhand_tpu_torch.geometry import objects
 from uvhand_tpu_torch.models.detr import UVHandDETR
@@ -171,21 +171,34 @@ UNPORTED = {
     "extraction_mode": ["--extraction_mode", "submit_pose"],
     "visualization": ["--visualization"], "native_loader": ["--native_loader", "fast"],
     "feature_type": ["--feature_type", "local_fm"],
-    "backbone": ["--backbone", "swin_L"], "mp": ["--mp", "2"], "world_size": ["--world_size", "2"],
+    "backbone": ["--backbone", "swin_L"], "mp": ["--mp", "2"],
     "assembly": ["--dataset_file", "AssemblyHands"], "h2o": ["--dataset_file", "H2O"],
     "fpha": ["--dataset_file", "FPHA"],
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED) + ["WORLD_SIZE"])
-def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path, monkeypatch):
-    argv = ["--output_dir", str(tmp_path), "--device", "cpu", "--two_stage", "--with_box_refine"]
-    if name == "WORLD_SIZE":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    else:
-        argv += UNPORTED[name]
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path):
+    argv = ["--output_dir", str(tmp_path), "--device", "cpu", "--two_stage", "--with_box_refine",
+            *UNPORTED[name]]
     with pytest.raises(SystemExit, match=r"not ported yet: .*\(ROADMAP Queue 1 item"):
         main(get_args_parser().parse_args(argv))
+
+
+def test_model_parallelism_names_item_6b(tmp_path):
+    with pytest.raises(SystemExit, match=r"--mp > 1 \(ROADMAP Queue 1 item 6b"):
+        main(get_args_parser().parse_args(["--output_dir", str(tmp_path), "--mp", "2"]))
+
+
+@pytest.mark.parametrize("name", ["world_size", "WORLD_SIZE"])
+def test_a_multi_process_launch_is_ported(name, monkeypatch):
+    """`--world_size` and the like are taken and ignored, as the JAX CLI
+    does; WORLD_SIZE alone (no RANK) is one process. Neither exits."""
+    argv = ["--world_size", "2", "--rank", "1", "--dist_url", "tcp://h:1"] if name == \
+        "world_size" else []
+    if name == "WORLD_SIZE":
+        monkeypatch.setenv("WORLD_SIZE", "2")
+    check_ported(get_args_parser().parse_args(argv))
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -862,3 +862,73 @@ def test_remat_train_step_gradients_equal_the_plain_step(cuda, tmp_path):
             assert err <= 1e-3, (n, err)
     l2 = sum(((g1[n] - g0[n]).double() ** 2).sum().item() for n in backbone)
     assert (l2 / sum((g0[n].double() ** 2).sum().item() for n in backbone)) ** 0.5 <= 1e-3
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_step_equals_the_plain_step(cuda, tmp_path):
+    """`init_multihost` at world size 1 under NCCL (explicit arguments, a
+    free port), then one SGD step (lr 1, no clip: the parameters move by the
+    gradient) of a small model through `make_fused_train_step` with the
+    process group (the gather and the all-reduce run, each an identity at
+    world size 1) and without it, from the same weights: the same loss dict
+    but grad_norm, which with every gradient is within 1e-3 (relative, and
+    of each tensor's max outside the backbone, in relative L2 error in it:
+    the backward kernel's dvalue atomics and cuDNN's weight gradients are
+    not bit-repeatable, as the remat test above says), and the same
+    launches, 4 forward + 4 backward kernels a step."""
+    import datetime
+    import socket
+
+    from uvhand_tpu_torch import engine
+    from uvhand_tpu_torch.data import arctic
+    from uvhand_tpu_torch.geometry import mano, objects
+    from uvhand_tpu_torch.models.detr import UVHandDETR
+    from uvhand_tpu_torch.train import launch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = launch.init_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=120)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        assert info == {"process_index": 0, "process_count": 1, "local_devices": 1,
+                        "global_devices": 1}
+        bank = objects.synthetic_object_bank(2, device="cpu")
+        arctic.make_synthetic_root(str(tmp_path / "arctic"), num_seqs=1, frames=2, views=1,
+                                   obj_bank=bank)
+        ds = arctic.ArcticDataset(str(tmp_path / "arctic"), "p1", "train", aug=False,
+                                  kp3d_cano=bank.kp_bottom.numpy(), img_res=128)
+        batch = engine.to_device(arctic.collate([ds[0], ds[1]]), cuda, engine.TRAIN_KEYS)
+        world = (mano.synthetic_mano(0, True, device=cuda),
+                 mano.synthetic_mano(1, False, device=cuda),
+                 objects.synthetic_object_bank(2, device=cuda))
+        runs = {}
+        for group in (None, torch.distributed.group.WORLD):
+            model = UVHandDETR(num_queries=12, num_encoder_layers=2, num_decoder_layers=2,
+                               d_model=64, n_heads=4, dim_feedforward=128, dropout=0.0,
+                               feature_mask_ratio=0.0,
+                               generator=torch.Generator().manual_seed(0), device=cuda)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            step = engine.make_fused_train_step(
+                model, *world, torch.optim.SGD(model.parameters(), lr=1.0), img_res=128.0,
+                clip_max_norm=0.0, device=cuda, process_group=group)
+            counts = (msda_cuda.FWD_STAGED.launches, msda_cuda.BWD_STAGED.launches)
+            ld = {k: float(v) for k, v in step(batch).items()}
+            torch.cuda.synchronize()
+            counts = (msda_cuda.FWD_STAGED.launches - counts[0],
+                      msda_cuda.BWD_STAGED.launches - counts[1])
+            runs[group is None] = (ld, {n: before[n] - p.detach()
+                                        for n, p in model.named_parameters()}, counts)
+        (ld0, g0, n0), (ld1, g1, n1) = runs[True], runs[False]
+        assert n0 == n1 == (4, 4)
+        norm = ld0.pop("grad_norm"), ld1.pop("grad_norm")
+        assert ld0 == ld1 and abs(norm[1] - norm[0]) <= 1e-3 * norm[0]
+        backbone = [n for n in g0 if n.startswith("backbone.")]
+        for n, g in g0.items():
+            if n not in backbone:
+                err = (g1[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                assert err <= 1e-3, (n, err)
+        l2 = sum(((g1[n] - g0[n]).double() ** 2).sum().item() for n in backbone)
+        assert (l2 / sum((g0[n].double() ** 2).sum().item() for n in backbone)) ** 0.5 <= 1e-3
+    finally:
+        torch.distributed.destroy_process_group()

@@ -240,14 +240,17 @@ def toy_model(dtype=torch.float32):
 
 
 def as_tree(tensors, dtype):
-    """{dotted name: tensor} -> the nested dict JAX's optimizer takes."""
+    """{dotted name: tensor} -> the nested dict JAX's optimizer takes. Each
+    leaf is a copy: on the CPU `jnp.asarray` may share an aligned numpy
+    buffer, and JAX's dispatch is asynchronous, so a leaf sharing a torch
+    tensor's memory could be read after torch changed it in place."""
     tree = {}
     for name, t in tensors.items():
         *path, leaf = name.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = jnp.asarray(t.detach().float().numpy(), dtype)
+        node[leaf] = jnp.asarray(np.array(t.detach().float().numpy()), dtype)
     return tree
 
 

@@ -1,0 +1,243 @@
+"""Throughput of the port's own programs on one card.
+
+    python -m uvhand_tpu_torch.bench [--device cpu] [--hidden_dim 64 ...]
+
+Counterpart of the root `bench.py`, which times the JAX package. It times
+the programs users run: `engine.make_fused_train_step` (GT preprocessing,
+forward in train mode, criterion, backward, clip, AdamW), the function the
+CLI trains with, and the serving path (forward, `select_queries`,
+`decode_predictions`, no GT), on one batch of `UVHAND_BENCH_BATCH` frames
+(default 16) read from a synthetic ARCTIC root (`data/arctic.py::
+make_synthetic_root`) through `ArcticDataset` and `DataLoader`, with
+weights drawn from a seed and synthetic MANO and objects. The model is
+arctic_sf at full width by default (R50, 224x224, d=256, 8 heads, 6+6
+layers, FFN 1024, 300 queries, two-stage, box refinement); the flags
+shrink it for a test on the CPU.
+
+Output: one JSON line a measurement, each printed and flushed as soon as it
+lands. The FIRST line is the headline, measured first:
+  {"metric": "train_frames_per_sec_chip", "value": N, "unit": "frames/s",
+   "vs_baseline": N, "dtype": "bfloat16", ...}
+(the bf16 compute mode). Then, each only while the run is under
+UVHAND_BENCH_BUDGET_S seconds (default 1200), and each as its own line
+(an error in one is printed as its line, and the rest go on): the fp32
+train step, the enc_lite train step and serving at 4x the batch
+(hi_every UVHAND_BENCH_ENC_LITE_HI, default 6), bf16 serving, the window-32
+temporal and the Swin-L train lines (not ported: each names its ROADMAP
+item and times nothing), fp32 serving.
+
+A time is the host clock over UVHAND_BENCH_SCAN (default 120) steps or
+batches after a warm-up one (which builds the kernels and the
+optimizer's state), ending in `torch.cuda.synchronize()`; the
+serving inputs vary between calls. Knobs, as in the root bench:
+UVHAND_BENCH_DTYPE=bfloat16|float32 (the headline mode alone),
+UVHAND_BENCH_ONLY=infer (serving alone), UVHAND_BENCH_INFER=0 and
+UVHAND_BENCH_LITE=0 (drop those lines). TF32 is off on the card, as in the
+CLI.
+
+The reference publishes no throughput (BASELINE.md). `vs_baseline` is
+against REFERENCE_FPS_ESTIMATE, an estimate of the CUDA reference's train
+throughput for arctic_sf on one A100 (R50, 224x224, 6+6, batch 16), not a
+measurement.
+
+It runs on the card and raises where there is none, unless given
+`--device cpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+
+REFERENCE_FPS_ESTIMATE = 140.0  # frames/s per A100, train step (see the docstring)
+WARMUP = 1
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def get_args_parser():
+    p = argparse.ArgumentParser("uvhand_tpu_torch.bench")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default: the card; raises without one) or cpu")
+    p.add_argument("--enc_layers", default=6, type=int)
+    p.add_argument("--dec_layers", default=6, type=int)
+    p.add_argument("--hidden_dim", default=256, type=int)
+    p.add_argument("--dim_feedforward", default=1024, type=int)
+    p.add_argument("--nheads", default=8, type=int)
+    p.add_argument("--num_queries", default=300, type=int)
+    p.add_argument("--img_res", default=224, type=int)
+    return p
+
+
+class Bench:
+    """The batch, the world and the model's size of one bench run."""
+
+    def __init__(self, args, device, batch_size: int, steps: int):
+        from .data import arctic
+        from .data.loader import DataLoader
+        from .geometry import mano, objects
+
+        self.args, self.device, self.steps = args, device, steps
+        bank = objects.synthetic_object_bank(2, device="cpu")
+        with tempfile.TemporaryDirectory(prefix="uvhand_bench_") as root:
+            # the object GT is consistent with the bank the steps use
+            arctic.make_synthetic_root(root, num_seqs=2, frames=(batch_size + 1) // 2,
+                                       views=1, obj_bank=bank)
+            ds = arctic.ArcticDataset(root, "p1", "train", img_res=args.img_res,
+                                      kp3d_cano=bank.kp_bottom.numpy())
+            loader = DataLoader(ds, batch_size, shuffle=False, seed=0)
+            try:
+                batch = next(iter(loader))
+            finally:
+                loader.close()
+        self.frames = int(batch["images"].shape[0])
+        self.batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
+        self.world = (mano.synthetic_mano(0, True, device=device),
+                      mano.synthetic_mano(1, False, device=device),
+                      objects.synthetic_object_bank(2, device=device))
+
+    def model(self, dtype: torch.dtype, enc_lite_hi: int = 0):
+        from .models.detr import UVHandDETR
+
+        a = self.args
+        return UVHandDETR(num_queries=a.num_queries, d_model=a.hidden_dim, n_heads=a.nheads,
+                          num_encoder_layers=a.enc_layers, num_decoder_layers=a.dec_layers,
+                          dim_feedforward=a.dim_feedforward, compute_dtype=dtype,
+                          enc_lite=enc_lite_hi > 0, enc_lite_hi_every=enc_lite_hi or 3,
+                          generator=torch.Generator().manual_seed(0), device=self.device)
+
+    def _timed(self, one) -> float:
+        """Seconds of `self.steps` calls of `one(i)` after WARMUP ones; each
+        returns a 0-d tensor, all of which must be finite."""
+        out = [one(i) for i in range(WARMUP)]
+        self._sync()
+        t0 = time.perf_counter()
+        out += [one(WARMUP + i) for i in range(self.steps)]
+        self._sync()
+        dt = time.perf_counter() - t0
+        if not bool(torch.isfinite(torch.stack(out).float()).all()):
+            raise FloatingPointError(f"non-finite results: {out}")
+        return dt
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train(self, dtype: torch.dtype, enc_lite_hi: int = 0) -> float:
+        """Frames/s of the fused train step in `dtype` compute."""
+        from . import engine
+        from .train.state import create_optimizer
+
+        model = self.model(dtype, enc_lite_hi)
+        step = engine.make_fused_train_step(
+            model, *self.world, create_optimizer(model), img_res=float(self.args.img_res),
+            generator=torch.Generator(device=self.device).manual_seed(0), device=self.device)
+        return self.frames * self.steps / self._timed(lambda i: step(self.batch)["total"])
+
+    def infer(self, dtype: torch.dtype, enc_lite_hi: int = 0, repeat: int = 1) -> float:
+        """Frames/s of serving: image -> decoded MANO and object meshes and
+        camera-space joints, no GT (the root bench's `measure_infer`); the
+        batch `repeat` times over."""
+        from .evaluation.decode import decode_predictions
+        from .losses.criterion import select_queries
+
+        model = self.model(dtype, enc_lite_hi)
+        images = torch.cat([self.batch["images"]] * repeat)
+        meta = {k: torch.cat([self.batch[k]] * repeat) for k in ("intrinsics", "query_idx")}
+
+        @torch.inference_mode()
+        def one(i):
+            out = model(images + i * 1e-6)  # inputs vary between calls
+            last = {k: v[-1] for k, v in out["stacked"].items() if v is not None}
+            pred = decode_predictions(select_queries(last), meta, *self.world,
+                                      float(self.args.img_res))
+            return pred["mano.j3d.cam.r"].sum()
+
+        return self.frames * repeat * self.steps / self._timed(one)
+
+
+def main(argv=None) -> None:
+    from .device import resolve_device
+
+    args = get_args_parser().parse_args(argv)
+    t_start = time.monotonic()
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # float32 stays float32 (the parity mode), as in the CLI
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    env = os.environ.get
+    batch_size = int(env("UVHAND_BENCH_BATCH", 16))
+    only_dtype = env("UVHAND_BENCH_DTYPE", "")
+    budget_s = float(env("UVHAND_BENCH_BUDGET_S", 1200))
+    hi = int(env("UVHAND_BENCH_ENC_LITE_HI", "6"))
+    bench = Bench(args, device, batch_size, int(env("UVHAND_BENCH_SCAN", 120)))
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    where = {"batch": bench.frames,
+             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
+
+    if env("UVHAND_BENCH_ONLY", "") == "infer":
+        dt = only_dtype or "bfloat16"
+        _emit({"metric": "infer_frames_per_sec_chip", "unit": "frames/s",
+               "value": bench.infer(dtypes[dt]), "dtype": dt, **where})
+        return
+
+    # the headline: measured first, printed first, flushed
+    dt = only_dtype or "bfloat16"
+    fps = bench.train(dtypes[dt])
+    _emit({"metric": "train_frames_per_sec_chip", "value": fps, "unit": "frames/s",
+           "vs_baseline": fps / REFERENCE_FPS_ESTIMATE, "dtype": dt, **where})
+    if only_dtype:
+        return
+
+    lite = {"dtype": "bfloat16", "mode": "enc_lite", "enc_lite_hi_every": hi}
+    extras = [("train_frames_per_sec_chip_fp32", lambda: bench.train(torch.float32),
+               {"dtype": "float32"})]
+    if env("UVHAND_BENCH_LITE", "1") == "1":
+        extras += [("train_frames_per_sec_chip_enc_lite",
+                    lambda: bench.train(torch.bfloat16, hi), lite),
+                   ("infer_frames_per_sec_chip_enc_lite",
+                    lambda: bench.infer(torch.bfloat16, hi, repeat=4),
+                    {**lite, "batch": 4 * bench.frames})]
+    infer = env("UVHAND_BENCH_INFER", "1") == "1"
+    if infer:
+        extras.append(("infer_frames_per_sec_chip", lambda: bench.infer(torch.bfloat16),
+                       {"dtype": "bfloat16"}))
+    extras += [("train_frames_per_sec_chip_window32", "ROADMAP Queue 1 item 9 (temporal)",
+                {"mode": "window32"}),
+               ("train_frames_per_sec_chip_swin", "ROADMAP Queue 1 item 10 (Swin-L backbone)",
+                {"mode": "swin_L_384_22k"})]
+    if infer:
+        extras.append(("infer_frames_per_sec_chip_fp32", lambda: bench.infer(torch.float32),
+                       {"dtype": "float32"}))
+    for metric, fn, meta in extras:
+        if isinstance(fn, str):
+            _emit({"metric": metric, "skipped": f"not ported: {fn}", **meta})
+            continue
+        if time.monotonic() - t_start >= budget_s:
+            _emit({"metric": metric, "skipped": "budget",
+                   "elapsed_s": time.monotonic() - t_start})
+            continue
+        try:
+            v = fn()
+        except Exception as e:  # an extra must never cost the headline or the others
+            traceback.print_exc()
+            _emit({"metric": metric, "error": f"{type(e).__name__}: {e}"[:200]})
+            continue
+        row = {"metric": metric, "value": v, "unit": "frames/s", **where, **meta}
+        if metric.startswith("train_"):
+            row["vs_baseline"] = v / REFERENCE_FPS_ESTIMATE
+        _emit(row)
+
+
+if __name__ == "__main__":
+    main()

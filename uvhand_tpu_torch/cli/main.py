@@ -24,6 +24,19 @@ JAX CLI is taken with its default; `--device` means the card unless it is
 `cpu`. An option this port does not run exits with a message naming its
 ROADMAP item (`UNPORTED`); none is ignored silently. `--stem_s2d` is the
 JAX package's TPU rewrite of the same stem: taken, and the one stem runs.
+
+Several processes, one device each, train and evaluate data-parallel:
+
+  torchrun --nproc_per_node 8 -m uvhand_tpu_torch.cli.main ...   # one node
+  srun --ntasks-per-node 8 python -m uvhand_tpu_torch.cli.main ...  # SLURM
+
+With RANK or SLURM_PROCID in the environment the CLI joins the process
+group first (`train/launch.py::init_multihost`: NCCL on the card, gloo
+under `--device cpu`). `--batch_size` and `--val_batch_size` are global
+sizes, split over the processes; each step's loss is the global batch's,
+as in the JAX package (`engine.make_fused_train_step`); only rank 0 prints
+and writes checkpoints and results. `--world_size`, `--rank`, `--dist_url`
+and `--dist_backend` are taken and ignored, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -140,7 +153,8 @@ def get_args_parser():
                    help="COCO datasets: cache decoded images in memory")
     p.add_argument("--make_pickle", action="store_true")
     # the card unless --device cpu; the rest accepted for command-line
-    # compatibility (one process on one card; amp is the --bf16 knob here)
+    # compatibility (the process group comes from the environment,
+    # train/launch.py; amp is the --bf16 knob here)
     p.add_argument("--device", default=None,
                    help="cuda (the default: the card; raises without one) or cpu")
     p.add_argument("--world_size", default=1, type=int)
@@ -229,9 +243,7 @@ UNPORTED = (
      "item 12 (cli/extract_features.py, which writes the features)"),
     (lambda a: a.backbone != "resnet50", "--backbone other than resnet50",
      "items 8 and 10 (ConvNeXt, Swin-L)"),
-    (lambda a: a.mp > 1, "--mp > 1", "item 6 (multi-GPU)"),
-    (lambda a: a.world_size > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1,
-     "a multi-process launch (--world_size or WORLD_SIZE > 1)", "item 6 (multi-GPU)"),
+    (lambda a: a.mp > 1, "--mp > 1", "item 6b (model parallelism)"),
     (lambda a: a.dataset_file in ("AssemblyHands", "H2O", "FPHA"),
      "the AssemblyHands/H2O/FPHA datasets", "item 11 (AssemblyHands / COCO family)"),
 )
@@ -302,10 +314,19 @@ def main(args) -> dict:
     from ..device import resolve_device
     from ..data.loader import DataLoader
     from ..train import checkpoint as ckpt
+    from ..train import mesh
     from ..train.state import (create_optimizer, onecycle_schedule, scheduled,
                                set_schedule_step, step_schedule)
     from ..utils.logging import WandbLogger, save_results
 
+    if "RANK" in os.environ or "SLURM_PROCID" in os.environ:
+        # a torchrun or SLURM launch (util/misc.py:519 surface)
+        from ..train.launch import init_multihost, print_on_main_only
+
+        topo = init_multihost(device=args.device)
+        print_on_main_only()
+        print(f"multihost: {topo} backend={torch.distributed.get_backend()}")
+    rank, world_size = mesh.rank_and_world()
     os.makedirs(args.output_dir, exist_ok=True)
     if args.config_file:
         # SLConfig merge: cfg keys NOT already on args are added; --options
@@ -318,16 +339,20 @@ def main(args) -> dict:
         for k, v in cfg.items():
             if k not in vars(args):
                 setattr(args, k, v)
-        with open(os.path.join(args.output_dir, "config_args_raw.json"), "w") as f:
-            json.dump(vars(args), f, indent=2, default=str)
+        if rank == 0:
+            with open(os.path.join(args.output_dir, "config_args_raw.json"), "w") as f:
+                json.dump(vars(args), f, indent=2, default=str)
     check_ported(args)
     device = resolve_device(args.device)
+    if mesh.active() and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())  # this process's card
     if device.type == "cuda":
         # float32 stays float32 (the parity mode): no TF32 in GEMMs or convs
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    with open(os.path.join(args.output_dir, "running_cmd.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    if rank == 0:
+        with open(os.path.join(args.output_dir, "running_cmd.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     if getattr(args, "fast_dev_run", False):
         args.batch_size = 8
@@ -339,6 +364,7 @@ def main(args) -> dict:
     mano_r, mano_l, bank = build_world(args, device)
     world = (mano_r, mano_l, bank)
     model = build_model(args, device)
+    mesh.broadcast_params(model)  # seeded alike everywhere; rank 0's are the run's
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model params: {n_params / 1e6:.1f}M")
 
@@ -352,10 +378,11 @@ def main(args) -> dict:
         root, args.setup, args.valsplit, img_res=args.img_res,
         focal_length=args.focal_length, kp3d_cano=kp3d_cano,
         two_stage=args.two_stage, seq=args.seq, viewpoint=args.test_viewpoint)
+    shard = dict(rank=rank, world_size=world_size)  # this process's rows of each batch
     dl_train = DataLoader(ds_train, args.batch_size, seed=args.seed,
-                          num_workers=args.num_workers, workers_mode=args.workers_mode)
+                          num_workers=args.num_workers, workers_mode=args.workers_mode, **shard)
     dl_val = DataLoader(ds_val, args.val_batch_size, shuffle=False, drop_last=False,
-                        num_workers=args.num_workers, workers_mode=args.workers_mode)
+                        num_workers=args.num_workers, workers_mode=args.workers_mode, **shard)
 
     optimizer = create_optimizer(model, lr=args.lr, lr_backbone=args.lr_backbone,
                                  lr_linear_proj_mult=args.lr_linear_proj_mult,
@@ -387,7 +414,8 @@ def main(args) -> dict:
         model, *world, optimizer, img_res=float(args.img_res),
         cost_class=args.set_cost_class, cost_keypoint=args.set_cost_keypoint,
         clip_max_norm=args.clip_max_norm,
-        generator=torch.Generator(device=device).manual_seed(args.seed), device=device)
+        generator=torch.Generator(device=device).manual_seed(mesh.process_seed(args.seed)),
+        device=device, process_group=torch.distributed.group.WORLD if mesh.active() else None)
 
     def train_step(batch):
         loss_dict = fused(batch)
@@ -451,7 +479,11 @@ def main(args) -> dict:
 
 def cli_entry(argv=None):
     parser = argparse.ArgumentParser("uvhand_tpu_torch driver", parents=[get_args_parser()])
-    main(parser.parse_args(argv))
+    try:
+        main(parser.parse_args(argv))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

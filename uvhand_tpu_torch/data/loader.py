@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..train.mesh import rank_slice
 from .arctic import collate
 
 #: fork-inherited dataset registry for process workers (copy-on-write)
@@ -44,7 +45,16 @@ def _process_getitem(args):
 
 
 class DataLoader:
-    """Minimal deterministic loader: shuffle per epoch, drop_last for train."""
+    """Minimal deterministic loader: shuffle per epoch, drop_last for train.
+
+    With `world_size` > 1 it is process `rank`'s share of one loader of
+    global batches of `batch_size`: every process draws the same global
+    order and the same batches, and collates only its contiguous
+    `batch_size // world_size` rows of each (`train.mesh.rank_slice`), so
+    the shares of all processes, in rank order, are the one-process batch.
+    `len()` counts the global batches. A last, short batch (`drop_last`
+    False) is split as far as its rows go: a process whose share of it is
+    empty yields nothing for it."""
 
     def __init__(
         self,
@@ -56,9 +66,12 @@ class DataLoader:
         seed: int = 0,
         collate_fn: Callable = collate,
         workers_mode: str = "thread",
+        rank: int = 0,
+        world_size: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.share = rank_slice(batch_size, rank, world_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -102,7 +115,11 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        nb = len(self)
+        # this process's rows of each global batch
+        shares = [idx[b * self.batch_size: (b + 1) * self.batch_size][self.share]
+                  for b in range(len(self))]
+        shares = [ids for ids in shares if len(ids)]
+        nb = len(shares)
         # pipeline: submit fetches for a couple of batches ahead
         ahead = 3
         futures = collections.deque()
@@ -113,8 +130,7 @@ class DataLoader:
         submit = 0
         for b in range(nb):
             while submit < min(nb, b + ahead):
-                ids = idx[submit * self.batch_size : (submit + 1) * self.batch_size]
-                futures.append(self.batch_pool.submit(fetch, ids))
+                futures.append(self.batch_pool.submit(fetch, shares[submit]))
                 submit += 1
             yield futures.popleft().result()
 

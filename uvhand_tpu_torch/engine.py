@@ -10,8 +10,11 @@ Port of `uvhand_tpu/engine.py`:
   - sequence metrics (`make_sequence_eval_step`, `evaluate_sequences`): ACC
     and MDev over each (subject, sequence, view) in time order.
 The loops take a `data.loader.DataLoader` (batches copied to the card by
-`device_prefetch`) or any iterable of in-memory batches. Multi-card
-training is not ported (ROADMAP Queue 1 item 6).
+`device_prefetch`) or any iterable of in-memory batches. Over several
+processes (`train.launch.init_multihost`) each holds a share of the global
+batch: the train step computes the loss of the global batch on every
+process and sums the gradients (`make_fused_train_step(process_group=...)`),
+and `evaluate` gathers the per-frame rows before the means.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from .evaluation.decode import decode_predictions
 from .evaluation.mdev import eval_motion_deviation
 from .evaluation.metrics import eval_acc_pose, measure_error
 from .losses.criterion import arctic_criterion, select_queries
+from .train.mesh import all_gather_rows, all_reduce_grads, gather_batch
 from .train.state import StochasticRounding, clip_by_global_norm_, global_norm
 from .utils.logging import MetricLogger
 from .utils.tools import arctic_smoothing
@@ -74,12 +78,28 @@ def to_device(batch: Dict[str, np.ndarray], device, keys=EVAL_KEYS) -> Dict[str,
             for k in keys if k in batch}
 
 
+def gather_global_batch(outputs, targets, group):
+    """The model outputs that the criterion reads (the stacked decoder
+    layers, batch on axis 1, and the encoder's `interm_outputs`) and the
+    processed targets (but the images) of the global batch, every
+    process's share in rank order (`train.mesh.gather_batch`): only this
+    process's rows carry autograd."""
+    out = {"stacked": {k: gather_batch(v, 1, group) for k, v in outputs["stacked"].items()}}
+    if "interm_outputs" in outputs:
+        out["interm_outputs"] = {k: gather_batch(v, 0, group)
+                                 for k, v in outputs["interm_outputs"].items()}
+    return out, {k: gather_batch(v, 0, group) for k, v in targets.items() if k != "images"}
+
+
 def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weights=None,
-                 cost_class: float = 1.5, cost_keypoint: float = 4.0, preprocess: bool = True):
+                 cost_class: float = 1.5, cost_keypoint: float = 4.0, preprocess: bool = True,
+                 process_group=None):
     """-> loss_fn(batch of tensors, generator) -> (total, loss dict): the
     training objective (the criterion reads from the outputs whether the
     model is single-stage). The GT preprocessing carries no gradient.
-    `preprocess=False` reads processed targets from `batch["targets"]`."""
+    `preprocess=False` reads processed targets from `batch["targets"]`.
+    With a `process_group`, `batch` is this process's share of the global
+    batch, and the loss is the global batch's (`gather_global_batch`)."""
 
     def loss_fn(batch, generator):
         if preprocess:
@@ -90,6 +110,8 @@ def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weight
         with record_function("forward"):
             outputs = model(batch["images"], generator=generator)
         with record_function("criterion"):
+            if process_group is not None:
+                outputs, targets = gather_global_batch(outputs, targets, process_group)
             return arctic_criterion(outputs, targets, mano_r, mano_l, obj_bank, img_res=img_res,
                                     weights=weights, cost_class=cost_class,
                                     cost_keypoint=cost_keypoint)
@@ -100,7 +122,8 @@ def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weight
 def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: float = 224.0,
                           weights=None, cost_class: float = 1.5, cost_keypoint: float = 4.0,
                           clip_max_norm: float = 0.1, preprocess: bool = True,
-                          generator: Optional[torch.Generator] = None, device=None):
+                          generator: Optional[torch.Generator] = None, device=None,
+                          process_group=None):
     """-> step(batch) -> loss dict (0-d tensors, with `grad_norm`) for a
     batch of numpy arrays or tensors: one optimizer update.
 
@@ -115,13 +138,25 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
     before the norm, the clip and the update, as the JAX package's
     `float32_optimizer_state` does. A learning-rate schedule is stepped by
     the caller after each step (`train.state.scheduled`). The stages are
-    profiler ranges named in `TRAIN_STAGES`."""
+    profiler ranges named in `TRAIN_STAGES`.
+
+    With a `process_group` (the JAX package's data axis), `batch` is this
+    process's share of the global batch (`data.loader.DataLoader(rank=...,
+    world_size=...)`): each process runs the GT preprocessing and the
+    forward on its rows, gathers the outputs and targets of every process
+    and computes the loss of the global batch, as the JAX step does in one
+    program (the per-hand gates, masked means, frame pairs and `num_boxes`
+    span the global batch). Its backward gives this process's share of the
+    gradient; the shares are summed (`train.mesh.all_reduce_grads`), and
+    every process then takes the same clip and update, so the parameters
+    stay equal across processes. Each process should draw dropout from a
+    generator of its own (`train.mesh.process_seed`)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     loss_fn = make_loss_fn(model, mano_r, mano_l, obj_bank, img_res=img_res, weights=weights,
                            cost_class=cost_class, cost_keypoint=cost_keypoint,
-                           preprocess=preprocess)
+                           preprocess=preprocess, process_group=process_group)
     float32_update = isinstance(optimizer, StochasticRounding)
     params = (optimizer.bf16_params if float32_update
               else [p for group in optimizer.param_groups for p in group["params"]])
@@ -139,6 +174,8 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad.float() if float32_update else p.grad for p in params]
+            if process_group is not None:
+                all_reduce_grads(grads, process_group)
             norm = global_norm(grads)
             if clip_max_norm > 0:
                 clip_by_global_norm_(grads, clip_max_norm, norm)
@@ -231,7 +268,10 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
 def evaluate(eval_step, loader: Iterable, max_steps: Optional[int] = None,
              timing: Optional[dict] = None) -> Dict[str, float]:
     """Run `eval_step` over `loader` (a `DataLoader` or any iterable of
-    batches); nanmean of every metric over frames. `timing`, where given,
+    batches); nanmean of every metric over frames. Over several processes
+    each runs its share of the batches, and the per-frame rows of every
+    process are gathered before the means (`train.mesh.all_gather_rows`),
+    so every process reports the global scores. `timing`, where given,
     gets each batch's time from its arrival to its rows on the host
     (`batch_ms`)."""
     per_metric: Dict[str, list] = {}
@@ -243,7 +283,8 @@ def evaluate(eval_step, loader: Iterable, max_steps: Optional[int] = None,
             timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
         if max_steps is not None and i + 1 >= max_steps:
             break
-    return {k: float(np.nanmean(np.concatenate(v))) for k, v in per_metric.items()}
+    rows = all_gather_rows({k: np.concatenate(v) for k, v in per_metric.items()})
+    return {k: float(np.nanmean(v)) for k, v in rows.items()}
 
 
 def make_sequence_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,

@@ -41,16 +41,20 @@ backwards' and ablation's wrappers count every launch, and `FWD_STAGED`,
 `ABLATE_GENERAL` count them by kernel, and so do `ONLYG_TILED` and
 `ONLYG_GENERAL` (`msda_onlyg.cu`'s kernels, chosen by `onlyg_plan`), the
 probes' `GATHER_STAGED` and `GATHER_GENERAL` (`gather_plan`) and `LANE_VEC4`
-and `LANE_GENERAL` (`lane_slice_plan`). The compiler's report of each
+and `LANE_GENERAL` (`lane_slice_plan`); `launch_counts()` reads them all by
+name, and a process started with UVHAND_LAUNCH_COUNTS_DIR set writes them
+there when it exits. The compiler's report of each
 kernel's registers, shared memory and spills (`-Xptxas -v`) is kept beside
 the library (`ptxas_report()`).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -837,3 +841,41 @@ def _launch_gather(kind, v, idx, axis):
 
 
 take_along_axis_cuda.launches = 0
+
+
+#: every launch count by its kernel's name: each wrapper's (`msda_fwd`, ...)
+#: and, for a wrapper of two kernels, each kernel's (`<op>_<kind>`)
+COUNTS = {
+    "msda_fwd": ms_deform_attn_cuda, "msda_bwd": ms_deform_attn_backward_cuda,
+    "msda_fwd_staged": FWD_STAGED, "msda_fwd_general": FWD_GENERAL,
+    "msda_bwd_staged": BWD_STAGED, "msda_bwd_general": BWD_GENERAL,
+    "msda_fac_fwd_staged": FAC_FWD_STAGED, "msda_fac_fwd_general": FAC_FWD_GENERAL,
+    "msda_fac_bwd_staged": FAC_BWD_STAGED, "msda_fac_bwd_general": FAC_BWD_GENERAL,
+    "msda_ablate_bwd_staged": ABLATE_STAGED, "msda_ablate_bwd_general": ABLATE_GENERAL,
+    **{f"msda_onlyg_{k}": c for k, c in ONLYG_KINDS.items()},
+    **{f"probe_lane_slice_{k}": c for k, c in LANE_SLICE_KINDS.items()},
+    **{f"probe_gather_{k}": c for k, c in GATHER_KINDS.items()},
+    "msda_fac_fwd": ms_deform_attn_fac_cuda, "msda_fac_bwd": ms_deform_attn_fac_backward_cuda,
+    "msda_ablate_bwd": ms_deform_attn_ablate_backward_cuda,
+    "msda_onlyg": ms_deform_attn_onlyg_cuda, "msda_xdot": ms_deform_attn_xdot_cuda,
+    "probe_lane_slice": lane_slice_cuda, "probe_gather": take_along_axis_cuda,
+}
+#: a directory: where it is set, a process writes its `launch_counts()` there
+#: when it exits (`launches.<pid>.json`), so that a launcher's worker
+#: processes (torchrun, a bench run as a subprocess) report what they ran
+COUNTS_DIR_ENV = "UVHAND_LAUNCH_COUNTS_DIR"
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches so far in this process, by name (`COUNTS`)."""
+    return {name: c.launches for name, c in COUNTS.items()}
+
+
+def _write_counts(directory: str) -> None:
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, f"launches.{os.getpid()}.json"), "w") as f:
+        json.dump(launch_counts(), f)
+
+
+if os.environ.get(COUNTS_DIR_ENV):
+    atexit.register(_write_counts, os.environ[COUNTS_DIR_ENV])

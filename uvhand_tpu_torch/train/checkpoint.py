@@ -11,7 +11,9 @@ surface:
     widened to float32 (exact; the JAX package's converter reads the file
     through numpy, which has no bfloat16) and narrowed back on restore,
     and the optimizer's float32 state and stochastic-rounding step are
-    saved with it;
+    saved with it; over several processes rank 0 writes, and every process
+    waits for the file before it goes on (so none resumes or evaluates a
+    half-written one);
   - `load_checkpoint` restores a checkpoint directory or `.pth` with the
     `not_use_params` keyword filter (parameters whose name holds a keyword
     keep their fresh values) and restores the optimizer tolerantly (a
@@ -30,6 +32,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from .launch import is_main_process
+from .mesh import barrier
+
 FILE = "checkpoint.pth"
 
 
@@ -37,8 +42,14 @@ def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None, step: int = 0,
                     extra: Optional[dict] = None) -> str:
     """Write `{output_dir}/{epoch}/checkpoint.pth` (and, with `extra`,
-    `{output_dir}/{epoch}.meta.json`); returns the checkpoint directory."""
+    `{output_dir}/{epoch}.meta.json`); returns the checkpoint directory.
+    Over several processes only rank 0 writes (the parameters and the
+    optimizer's state are the same on every process), and every process
+    returns once the files are whole."""
     ckpt_dir = os.path.abspath(os.path.join(output_dir, str(epoch)))
+    if not is_main_process():
+        barrier()
+        return ckpt_dir
     os.makedirs(ckpt_dir, exist_ok=True)
     weights = {k: v.float() if v.dtype == torch.bfloat16 else v
                for k, v in model.state_dict().items()}
@@ -51,6 +62,7 @@ def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module,
     if extra is not None:
         with open(os.path.join(output_dir, f"{epoch}.meta.json"), "w") as f:
             json.dump(extra, f, default=str)
+    barrier()
     return ckpt_dir
 
 

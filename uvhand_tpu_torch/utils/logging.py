@@ -3,8 +3,9 @@
 Port of `uvhand_tpu/utils/logging.py` (the reference's `MetricLogger` and
 `SmoothedValue`, `util/misc.py`, and `save_results`, `util/tools.py`):
 `loss.txt` and `results.txt` get the same bytes for the same dicts.
-`synchronize_between_processes` is single-process here (multi-card runs
-are ROADMAP Queue 1 item 6).
+Over several processes the meters merge across them
+(`synchronize_between_processes`), and only rank 0 writes the results
+files and logs to wandb.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict
+
+import numpy as np
+
+from ..train.launch import is_main_process
+from ..train.mesh import active, all_gather_rows, barrier
 
 
 class SmoothedValue:
@@ -70,11 +76,22 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
 
-    def synchronize_between_processes(self):
+    def synchronize_between_processes(self, allgather_fn=None):
         """Merge each meter's (count, total) across processes so that
-        global_avg is the global average: nothing to merge in one process,
-        which is all the port runs (multi-card runs are ROADMAP Queue 1
-        item 6)."""
+        global_avg is the global average (util/misc.py:225-236's
+        all_reduce). No-op in one process; `allgather_fn` (a float64
+        [count, total] -> every process's, stacked) is injectable for
+        tests, and is `train.mesh.all_gather_rows` over the default process
+        group otherwise."""
+        if allgather_fn is None:
+            if not active():
+                return
+            allgather_fn = all_gather_rows
+        for m in self.meters.values():
+            arr = np.asarray(allgather_fn(np.asarray([m.count, m.total], np.float64))
+                             ).reshape(-1, 2)
+            m.count = int(arr[:, 0].sum())
+            m.total = float(arr[:, 1].sum())
 
     def log_every(self, iterable, print_freq: int, header: str = "", total=None):
         i = 0
@@ -106,26 +123,32 @@ def save_results(output_dir: str, epoch: int, loss_dict=None, score_dict=None,
                  header: str | None = None):
     """Append to loss.txt / results.txt (util/tools.py:607-640). `header`
     reproduces the reference's eval banner (test_viewpoint / batch*window /
-    iter, util/tools.py:620-623)."""
-    os.makedirs(output_dir, exist_ok=True)
-    if loss_dict is not None:
-        with open(os.path.join(output_dir, "loss.txt"), "a") as f:
-            f.write(json.dumps({"epoch": epoch, **{k: float(v) for k, v in loss_dict.items()}}) + "\n")
-    if score_dict is not None:
-        with open(os.path.join(output_dir, "results.txt"), "a") as f:
-            if header:
-                f.write(f"{'='*10} {header} {'='*10}\n")
-            f.write(json.dumps({"epoch": epoch, **{k: float(v) for k, v in score_dict.items()}}) + "\n")
+    iter, util/tools.py:620-623). Over several processes rank 0 writes and
+    every process waits for it."""
+    if is_main_process():
+        os.makedirs(output_dir, exist_ok=True)
+        if loss_dict is not None:
+            with open(os.path.join(output_dir, "loss.txt"), "a") as f:
+                f.write(json.dumps({"epoch": epoch,
+                                    **{k: float(v) for k, v in loss_dict.items()}}) + "\n")
+        if score_dict is not None:
+            with open(os.path.join(output_dir, "results.txt"), "a") as f:
+                if header:
+                    f.write(f"{'='*10} {header} {'='*10}\n")
+                f.write(json.dumps({"epoch": epoch,
+                                    **{k: float(v) for k, v in score_dict.items()}}) + "\n")
+    barrier()
 
 
 class WandbLogger:
     """Opt-in Weights & Biases logging (util/settings.py:566-580,
-    util/tools.py:643). No-ops when wandb isn't installed or --wandb unset."""
+    util/tools.py:643). No-ops when wandb isn't installed or --wandb unset,
+    and on every process but rank 0."""
 
     def __init__(self, enabled: bool, project: str = "uvhand_tpu", config=None,
                  name: str | None = None):
         self.run = None
-        if not enabled:
+        if not enabled or not is_main_process():
             return
         try:
             import wandb
