@@ -144,9 +144,24 @@ Phases, in order; any failure raises and the script exits non-zero:
   17. the port's bench (`python -m uvhand_tpu_torch.bench`, a few steps a
      mode): its first line the bf16 train headline, finite and > 0, every
      other line a rate or a named skip, 12 staged forward launches a call
-     and 12 backward a train step; its lines logged beside the card.
+     and 12 backward a train step; its lines logged beside the card;
+  18. DINO_4scale at full width (`dino_variant`, `use_dn`,
+     look-forward-twice, dn_number 100: the decoder's calls of a train step
+     take 300 + 198 CDN queries), float32 and bf16: 2 serving batches (12
+     staged forward launches each) held end to end against the plain MSDA
+     run, a train pass against the plain versions with one injected CDN
+     draw (every loss, the `*_dn` terms included, within 1e-4; gradients
+     within 1e-3 / 5e-2 of each tensor's max), 3 train steps (12 + 12
+     staged launches a step, no other kernel, `label_enc` moves), the
+     steady step ms and a profiled step's device busy share;
+  19. the DINO model on ConvNeXt-XL, float32: one serving batch and 2
+     train steps with the same launch checks, and their peak device
+     memory; then the CLI with `--modelname dino` on phase 13's root: an
+     epoch of 2 steps and its eval, and `--eval --resume` of its checkpoint,
+     whose scores must equal the in-process eval's.
   Phases 3 and 3b also time the forward and backward kernels on one
-  enc_lite call (Lq 261, S 1045, B=16, float32) beside its bound.
+  enc_lite call (Lq 261, S 1045, B=16, float32) and on one DINO decoder
+  call (Lq 498, float32 and bf16) beside their bounds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -175,6 +190,7 @@ from uvhand_tpu_torch.data.loader import DataLoader, device_prefetch
 from uvhand_tpu_torch.geometry import mano, objects
 from uvhand_tpu_torch.geometry.rotations import axis_angle_to_matrix, rotate_about_axis
 from uvhand_tpu_torch.models.detr import UVHandDETR
+from uvhand_tpu_torch.models.dn import CdnConfig, prepare_cdn
 from uvhand_tpu_torch.ops import msda_cuda
 from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
@@ -194,6 +210,8 @@ MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
 # enc_lite's low-resolution-only layers: the queries of levels 1.. (S - 28*28)
 ENC_LITE_LQ = sum(h * w for h, w in LEVELS[1:])
+# the DINO train step's decoder call: 300 matching + 198 CDN queries (dn_number 100)
+DN_LQ = 300 + CdnConfig(100).pad_size
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
@@ -327,6 +345,8 @@ def kernel_phase():
         ("enc_lite fp32", dict(enc, Lq=ENC_LITE_LQ), (0.0, 1.0), torch.float32, True),
         ("encoder bf16", enc, (0.0, 1.0), torch.bfloat16, True),
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
+        ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
+        ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -362,7 +382,7 @@ def kernel_phase():
                                      f"({name})")
             if dtype == torch.float32:
                 max_err[kind] = max(max_err[kind], err)
-        if plan is None and name.startswith(("encoder", "decoder", "enc_lite")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -404,6 +424,8 @@ def backward_kernel_phase():
         ("enc_lite fp32", dict(enc, Lq=ENC_LITE_LQ), (0.0, 1.0), torch.float32, True),
         ("encoder bf16", enc, (0.0, 1.0), torch.bfloat16, True),
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
+        ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
+        ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -446,7 +468,7 @@ def backward_kernel_phase():
                 + f"; tol {TOL[dtype]:.0e} ok"
                 + (f" (plan: levels {plan.groups}, {plan.smem} B of shared memory)"
                    if kind == "staged" else ""))
-        if plan is None and name.startswith(("encoder", "decoder", "enc_lite")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -1181,9 +1203,18 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
     within `grad_tol` of its tensor's max (the backward kernel's float32
     dvalue sums are atomics in no fixed order, and cuDNN's weight gradients
     are not bit-repeatable either; in bf16 a last-bit change of a dvalue
-    sum moves its bf16 rounding a whole bf16 step)."""
+    sum moves its bf16 rounding a whole bf16 step). A model with CDN
+    queries takes one draw of them (`dn_meta`), injected into both runs,
+    and its `*_dn` loss terms must be there."""
     loss_fn = engine.make_loss_fn(model, *world, img_res=IMG_RES)
     tb = engine.to_device(batch, "cuda", engine.TRAIN_KEYS)
+    dn_meta = None
+    if getattr(model, "use_dn", False):
+        with torch.no_grad():
+            t = engine.dn_targets(tb)
+            dn_meta = prepare_cdn(torch.Generator(device="cuda").manual_seed(SEED + 7),
+                                  t["labels"], t["keypoints"], t["target_valid"],
+                                  model.num_classes, model.cdn)
     params = dict(model.named_parameters())
     runs = {}
     model.train()
@@ -1191,7 +1222,7 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
         for impl in ("auto", "torch"):
             set_msda_impl(model, impl)
             model.zero_grad(set_to_none=True)
-            total, ld = loss_fn(tb, torch.Generator(device="cuda").manual_seed(SEED))
+            total, ld = loss_fn(tb, torch.Generator(device="cuda").manual_seed(SEED), dn_meta)
             total.backward()
             runs[impl] = ({k: float(v.detach()) for k, v in ld.items()},
                           {n: p.grad.clone() for n, p in params.items() if p.grad is not None})
@@ -1205,6 +1236,9 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
         f"(tol 1e-4)")
     if set(g_k) != set(g_p) or bad:
         raise AssertionError(f"kernel and plain train passes disagree on losses {bad}")
+    if dn_meta is not None and not {"loss_ce_dn", "loss_hand_keypoint_dn",
+                                    "loss_obj_keypoint_dn"} <= set(ld_p):
+        raise AssertionError(f"{tag}: no dn loss terms in {sorted(ld_p)}")
     worst, worst_name = 0.0, ""
     for n, gp in g_p.items():
         rel = float((g_k[n] - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
@@ -1256,6 +1290,9 @@ def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN, sgd=Fal
                                  f"expected {expected(per_step)}")
         if not all(moved.values()):
             raise AssertionError(f"step {i}: a parameter group did not move: {moved}")
+        if "label_enc.weight" in params and torch.equal(params["label_enc.weight"],
+                                                        old["label_enc.weight"]):
+            raise AssertionError(f"{tag} step {i}: the dn label embedding did not move")
         bad = [n for n, p in params.items()
                if p.dtype != old[n].dtype or not bool(torch.isfinite(p).all())]
         if bad:
@@ -1814,6 +1851,130 @@ def bench_phase(card):
     return counts
 
 
+# ------------------------------------------------------------ 18-19. DINO
+
+#: the DINO variant as the CLI builds it (`--modelname dino --two_stage`):
+#: tied heads, CDN queries (dn_number 100: 198), look-forward-twice
+DINO = dict(dino_variant=True, use_dn=True, look_forward_twice=True)
+DINO_BATCHES, DINO_STEPS, CONVNEXT_STEPS = 2, 3, 2
+
+
+def dn_call_line(timed, btimed, card):
+    """K1's and K3's (K2's in bf16) device ms of one decoder call of the DINO
+    train step (Lq 498) beside its byte bound, from phases 3 and 3b."""
+    for dtype in ("fp32", "bf16"):
+        case = f"dn decoder {dtype}"
+        fwd, bwd = timed[case]["staged"], btimed[case]["staged"]
+        log(f"[dino] one decoder call at Lq {DN_LQ} (B={BATCH}, {dtype}): msda_fwd_staged device "
+            f"{ms_or_not(fwd['device_ms'])} ms (events {fwd['ms']:.4f}) against a "
+            f"{fwd['bound_ms']:.4f} ms {fwd['bound_by']} bound; msda_bwd_staged device "
+            f"{ms_or_not(bwd['device_ms'])} ms (events {bwd['ms']:.4f}) against "
+            f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']}) ({card})")
+
+
+def dino_phase(world, batches, train_batches, card):
+    """Phase 18: DINO_4scale at full width (R50, 224x224, d=256, 8 heads,
+    6+6 layers, FFN 1024, 300 queries, 4 levels x 4 points, dn_number 100),
+    float32 and bf16 compute: 2 serving batches (12 staged forward launches
+    each, no CDN in eval mode) held end to end against the plain MSDA run; a
+    train pass with the kernels against the same pass on the plain versions
+    from the same weights with one injected CDN draw (every loss, the
+    `*_dn` terms included, within 1e-4; gradients within 1e-3 / 5e-2 of
+    each tensor's max); 3 train steps of `make_fused_train_step` (the
+    decoder's 6 calls at Lq 498, 12 + 12 staged launches a step, no other
+    kernel, `label_enc` moves, everything finite); a profiled train step.
+    Returns {tag: (serving launches, training launches)}."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for tag, dtype, grad_tol in (("dino fp32", torch.float32, 1e-3),
+                                 ("dino bf16", torch.bfloat16, 5e-2)):
+        model = build_model(**DINO, compute_dtype=dtype)
+        rows, _, serve = main_path_phase(model, world, batches[:DINO_BATCHES], card, tag)
+        e2e_phase(model, world, batches[0], rows[0], tag)
+        train_ab_phase(model, world, train_batches[0], grad_tol=grad_tol, tag=tag)
+        times, train = train_phase(model, world, train_batches[:DINO_STEPS], card, tag)
+        log(f"[dino] {tag}: steady train step {np.median(times[1:]) * 1e3:.3f} ms "
+            f"({BATCH / np.median(times[1:]):.1f} frames/s, B={BATCH}, {card})")
+        opt = create_optimizer(model)
+        step = engine.make_fused_train_step(
+            model, *world, opt, img_res=IMG_RES,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        profile_line(f"{tag} train step", lambda: step(train_batches[1]))
+        counts[tag] = (serve, train)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    log(f"[dino] phase 18 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return counts
+
+
+def convnext_phase(world, batches, train_batches, card):
+    """Phase 19: the DINO model on the ConvNeXt-XL backbone (depths
+    3/3/27/3, dims 256..2048), float32: one serving batch and CONVNEXT_STEPS
+    train steps at B=16 with the launch checks of phase 18, and the peak
+    device memory of the steps. Returns (serving launches, training
+    launches)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = build_model(**DINO, backbone="convnext_xlarge_22k")
+    n = sum(p.numel() for p in model.parameters())
+    _, _, serve = main_path_phase(model, world, batches[:1], card, "dino convnext")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, train = train_phase(model, world, train_batches[:CONVNEXT_STEPS], card,
+                               "dino convnext")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[convnext] DINO on ConvNeXt-XL ({n / 1e6:.1f}M parameters), fp32, B={BATCH}: train "
+        f"steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms, peak device memory "
+        f"{peak / 2**30:.3f} GiB allocated ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[convnext] phase 19 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return serve, train
+
+
+def dino_cli_phase(card):
+    """The CLI with `--modelname dino` (fp32) on phase 13's synthetic root:
+    an epoch of 2 `--debug` steps and its eval (2 batches), then `--eval
+    --resume` of its checkpoint with the default metrics, whose scores must
+    equal the in-process eval's; 12 staged forward launches a batch and
+    12 + 12 a step, no other kernel. Returns the launches of both runs."""
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(CLI_DIR, "data")
+    out = os.path.join(CLI_DIR, "dino")
+    parse = cli.get_args_parser().parse_args
+    seq_batches = CLI_SEQS * CLI_VIEWS * -(-CLI_FRAMES // BATCH)
+    runs, res = {}, {}
+    for tag, argv, want in (
+            ("dino train epoch", cli_argv(data_dir, out, "--num_debug", "2", "--modelname",
+                                          "dino"),
+             expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}),
+                      2)),
+            ("dino eval --resume", cli_argv(data_dir, out + "_eval", "--num_debug", "2",
+                                            "--modelname", "dino", "--eval", "--resume",
+                                            os.path.join(out, "0")),
+             expected(SERVE, 2 + seq_batches))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res[tag] = cli.main(parse(argv))
+        torch.cuda.synchronize()
+        runs[tag] = read_counts()
+        if runs[tag] != want:
+            raise AssertionError(f"[dino-cli] {tag}: launches {runs[tag]}, expected {want}")
+        log(f"[dino-cli] {tag}: wall clock {time.perf_counter() - t0:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in runs[tag].items() if v})} ({card})")
+    epoch = res["dino train epoch"]["epochs"][0]
+    resumed = res["dino eval --resume"]["scores"][0]
+    for k, v in epoch["scores"].items():
+        if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
+            raise AssertionError(f"[dino-cli] {k}: resumed eval {resumed[k]} != in-process {v}")
+    bad = sorted(k for k, v in {**epoch["stats"], **resumed}.items() if not np.isfinite(v))
+    if bad:
+        raise AssertionError(f"[dino-cli] scores not finite: {bad}")
+    log(f"[dino-cli] losses {json.dumps(epoch['stats'])}; the resumed eval's scores equal the "
+        f"in-process eval's: {json.dumps(resumed)}; took {time.perf_counter() - t_phase:.2f} s")
+    return runs
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1918,6 +2079,12 @@ def main() -> int:
     torchrun_runs = launcher_phase(card)
     bench_counts = bench_phase(card)
 
+    # 18. DINO_4scale, fp32 and bf16; 19. on ConvNeXt-XL; the CLI with --modelname dino
+    dn_call_line(timed, btimed, card)
+    dino_counts = dino_phase(world, batches, train_batches, card)
+    convnext_counts = convnext_phase(world, batches, train_batches, card)
+    dino_cli_runs = dino_cli_phase(card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -1938,7 +2105,8 @@ def main() -> int:
         "batches), and phase 3e's general paths' (msda_*_general: arctic_sf's shapes launch none "
         "of them); launches_by_path gives every path's count (phase 14's options and the CLI's "
         "option runs included); *_enc_lite_call: one float32 call of enc_lite's low-resolution-"
-        "only layers (Lq 261 against S 1045, B=16)")
+        "only layers (Lq 261 against S 1045, B=16); *_dn_decoder_call(_bf16): one decoder call "
+        "of the DINO train step (Lq 498: 300 + 198 CDN queries, B=16)")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -1969,11 +2137,18 @@ def main() -> int:
                 **{f"train_{tag}": n[1][name] for tag, n in option_counts.items()},
                 "cli_torchrun_train": torchrun_runs["train"][name],
                 "cli_torchrun_eval": torchrun_runs["eval --resume"][name],
-                "bench": bench_counts[name]}
+                "bench": bench_counts[name],
+                **{f"serve_{tag}": n[0][name] for tag, n in dino_counts.items()},
+                **{f"train_{tag}": n[1][name] for tag, n in dino_counts.items()},
+                "serve_dino_convnext": convnext_counts[0][name],
+                "train_dino_convnext": convnext_counts[1][name],
+                "cli_dino_train": dino_cli_runs["dino train epoch"][name],
+                "cli_dino_eval": dino_cli_runs["dino eval --resume"][name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
         lite = timed_["enc_lite fp32"][kind]  # one enc_lite low-resolution-only call
+        dn = {dt: timed_[f"dn decoder {dt}"][kind] for dt in ("fp32", "bf16")}
         return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
                 "replaces": replaces, "launches": launches, "launches_by_path": by_path(
                     f"{op}_{kind}"), "dtype": "float32", "max_abs_err": errs[kind],
@@ -1981,7 +2156,9 @@ def main() -> int:
                 "device_ms_bf16": bf16["device_ms"], "plain_ms_bf16": bf16["plain_ms"],
                 "bound_ms_bf16": bf16["bound_ms"],
                 **{f"{k}_enc_lite_call": lite[k]
-                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                **{f"{k}_dn_decoder_call{'' if dt == 'fp32' else '_bf16'}": dn[dt][k]
+                   for dt in dn for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
 
     def fac_row(op, kind, key, launches, replaces):
         fp32 = per_call(ftimed[key], "fp32", kind)

@@ -3,7 +3,9 @@
 A tiny model (1+2 layers, d 64, FFN 128, 4 heads, 12 queries, 64x64) on a
 batch of 2, 2 steps or batches after the warm-up one: the first line is
 the bf16 train headline with the root bench's keys, every line is JSON, and
-the not-ported modes name their ROADMAP items and time nothing. Without a
+the not-ported modes name their ROADMAP items and time nothing. The DINO
+model and the ConvNeXt backbone knobs (a shrunken ConvNeXt here) run the
+DINO train step, which draws CDN queries every step. Without a
 card and without `--device cpu` it raises. The numbers are CPU rates, not
 the card's; only their form is checked.
 """
@@ -24,7 +26,8 @@ TINY = ["--device", "cpu", "--enc_layers", "1", "--dec_layers", "2", "--hidden_d
 def bench_env(monkeypatch):
     monkeypatch.setenv("UVHAND_BENCH_BATCH", "2")
     monkeypatch.setenv("UVHAND_BENCH_SCAN", "2")
-    for knob in ("DTYPE", "ONLY", "INFER", "LITE", "BUDGET_S", "ENC_LITE_HI"):
+    for knob in ("DTYPE", "ONLY", "INFER", "LITE", "BUDGET_S", "ENC_LITE_HI", "MODEL",
+                 "BACKBONE"):
         monkeypatch.delenv(f"UVHAND_BENCH_{knob}", raising=False)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -77,6 +80,34 @@ def test_knobs_and_the_budget(bench_env, capsys):
         "train_frames_per_sec_chip_window32": "not ported: ROADMAP Queue 1 item 9 (temporal)",
         "train_frames_per_sec_chip_swin": "not ported: ROADMAP Queue 1 item 10 (Swin-L "
                                           "backbone)"}
+
+
+def test_the_dino_and_convnext_knobs(bench_env, capsys):
+    from uvhand_tpu_torch.models import detr
+    from uvhand_tpu_torch.models.backbones import convnext
+
+    bench_env.setattr(convnext, "CONVNEXT_XL_DEPTHS", (1, 1, 1, 1))
+    bench_env.setattr(convnext, "CONVNEXT_XL_DIMS", (16, 32, 64, 128))
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return prepare_cdn(*a, **kw)
+
+    prepare_cdn = detr.prepare_cdn
+    bench_env.setattr(detr, "prepare_cdn", counted)
+    for knob, value in (("MODEL", "dino"), ("BACKBONE", "convnext"), ("LITE", "0"),
+                        ("INFER", "0")):
+        bench_env.setenv(f"UVHAND_BENCH_{knob}", value)
+    lines = run(capsys)
+    timed = [x for x in lines if "value" in x]
+    assert [x["metric"] for x in timed] == ["train_frames_per_sec_chip",
+                                            "train_frames_per_sec_chip_fp32"]
+    assert all(x["model"] == "dino" and x["backbone"] == "convnext_xlarge_22k" for x in timed)
+    assert all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
+    assert len(calls) == 2 * 3  # every train step (warm-up + 2) of both modes
+    bench_env.setenv("UVHAND_BENCH_BACKBONE", "swin")
+    assert run(capsys)[0]["skipped"] == "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"
 
 
 def test_the_card_without_a_card_raises(bench_env, monkeypatch):

@@ -8,7 +8,11 @@
     tolerantly; `list_checkpoints` sorts by epoch; a resumed schedule
     continues at its step's learning rate;
   - every option the port does not run exits with a message naming its
-    ROADMAP item; `--device cuda` (or the default) without a card raises;
+    ROADMAP item (Swin-L still does); the DINO variant, `--use_dn` and
+    the ConvNeXt backbone are taken; `--onecyclelr` schedules over 12
+    epochs for dino and 32 otherwise; `-c configs/DINO/DINO_4scale.py`
+    adds only the keys the flags lack; `--device cuda` (or the default)
+    without a card raises;
   - the A/B: the port CLI trains one `--debug` step of a 1+1-layer d=64
     model (B=8, `--device cpu`) and writes out/0/checkpoint.pth, loss.txt
     and results.txt; then `--eval --resume` of that file through the port
@@ -20,7 +24,8 @@
     (at 128x128);
   - the model and training options (`--remat`, `--enc_lite`, `--sgd`,
     `--position_embedding learned`, `--no_aux_loss`) each train a step,
-    evaluate, and resume into `--eval`; `--two_stage` without
+    evaluate, and resume into `--eval`; so does `--modelname dino
+    --two_stage`, with the ResNet and with a shrunken ConvNeXt; `--two_stage` without
     `--with_box_refine` raises as the JAX model fails; bfloat16 parameters
     round-trip through a checkpoint with their optimizer state.
 """
@@ -34,7 +39,7 @@ import torch
 
 from uvhand_tpu.cli.main import get_args_parser as jax_parser
 from uvhand_tpu.cli.main import main as jax_main
-from uvhand_tpu_torch.cli.main import check_ported, get_args_parser, main
+from uvhand_tpu_torch.cli.main import check_ported, get_args_parser, main, onecycle_epochs
 from uvhand_tpu_torch.data import arctic
 from uvhand_tpu_torch.geometry import objects
 from uvhand_tpu_torch.models.detr import UVHandDETR
@@ -65,8 +70,8 @@ def test_config_file_merges_as_the_jax_cli(tmp_path):
     cfg.write_text("custom_knob = 7\nlr = 9.9\nnested = dict(a=1, b=2)\n")
     args = get_args_parser().parse_args(
         ["--config_file", str(cfg), "--options", "custom_knob=8", "nested.b=3",
-         "--output_dir", str(tmp_path / "out"), "--use_dn"])
-    with pytest.raises(SystemExit, match="--use_dn"):  # stops after the merge
+         "--output_dir", str(tmp_path / "out"), "--extract"])
+    with pytest.raises(SystemExit, match="--extract"):  # stops after the merge
         main(args)
     raw = json.load(open(tmp_path / "out" / "config_args_raw.json"))
     assert raw["custom_knob"] == 8 and raw["nested"] == {"a": 1, "b": 3}
@@ -165,7 +170,6 @@ def test_a_resumed_schedule_continues_at_its_step():
 
 
 UNPORTED = {
-    "use_dn": ["--use_dn"], "dino": ["--modelname", "dino"],
     "arctic_lstm": ["--method", "arctic_lstm"], "temporal_head": ["--temporal_head", "lstm"],
     "train_smoothnet": ["--train_smoothnet"], "extract": ["--extract"],
     "extraction_mode": ["--extraction_mode", "submit_pose"],
@@ -183,6 +187,41 @@ def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path):
             *UNPORTED[name]]
     with pytest.raises(SystemExit, match=r"not ported yet: .*\(ROADMAP Queue 1 item"):
         main(get_args_parser().parse_args(argv))
+
+
+def test_swin_is_still_refused(tmp_path):
+    with pytest.raises(SystemExit, match=r"--backbone other than resnet50 and "
+                       r"convnext_xlarge_22k \(ROADMAP Queue 1 item 10"):
+        main(get_args_parser().parse_args(["--output_dir", str(tmp_path), "--backbone",
+                                           "swin_L_384_22k"]))
+
+
+@pytest.mark.parametrize("flags", [["--use_dn"], ["--modelname", "dino"],
+                                   ["--backbone", "convnext_xlarge_22k"]],
+                         ids=["use_dn", "dino", "convnext"])
+def test_dino_and_convnext_are_ported(flags):
+    check_ported(get_args_parser().parse_args(flags))
+
+
+@pytest.mark.parametrize("modelname,epochs", [("deformable_detr", 32), ("dino", 12)])
+def test_onecyclelr_schedules_over_the_models_epochs(modelname, epochs):
+    """32 epochs for deformable_detr, 12 for dino, as the JAX CLI."""
+    args = get_args_parser().parse_args(["--modelname", modelname, "--onecyclelr"])
+    assert onecycle_epochs(args) == epochs
+
+
+def test_the_dino_config_file_adds_only_missing_keys(tmp_path):
+    """`-c configs/DINO/DINO_4scale.py` adds only the keys the flags lack,
+    as the JAX CLI does: `use_dn` and `modelname` stay the flags' (a
+    divergence of the JAX CLI from the reference, mirrored)."""
+    args = get_args_parser().parse_args(
+        ["-c", os.path.join(os.path.dirname(__file__), "..", "configs", "DINO",
+                            "DINO_4scale.py"), "--output_dir", str(tmp_path), "--extract"])
+    with pytest.raises(SystemExit, match="--extract"):
+        main(args)
+    raw = json.load(open(tmp_path / "config_args_raw.json"))
+    assert raw["use_dn"] is False and raw["modelname"] == "deformable_detr"
+    assert raw["dn_label_noise_ratio"] == 0.5  # a key the flags lack
 
 
 def test_model_parallelism_names_item_6b(tmp_path):
@@ -294,6 +333,34 @@ def test_the_model_options_train_and_evaluate(name, small_root, tmp_path):
         "--output_dir", str(tmp_path / "ev"), "--device", "cpu", "--eval", "--resume",
         str(out / "0"), "--eval_metrics", "aae"]))
     assert np.isfinite(ev["scores"][0]["aae"])
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "convnext_xlarge_22k"])
+def test_dino_trains_a_debug_step_and_its_checkpoint_evaluates(backbone, small_root, tmp_path,
+                                                               monkeypatch):
+    """`--modelname dino --two_stage` trains one `--debug` step (its loss
+    holds the `*_dn` terms through the total) and evaluates; its checkpoint
+    resumes into `--eval` with the same scores. The ConvNeXt is shrunken
+    (depths 1, dims 16..128) so that it runs here."""
+    from uvhand_tpu_torch.models.backbones import convnext
+
+    monkeypatch.setattr(convnext, "CONVNEXT_XL_DEPTHS", (1, 1, 1, 1))
+    monkeypatch.setattr(convnext, "CONVNEXT_XL_DIMS", (16, 32, 64, 128))
+    argv = small_root + ["--modelname", "dino", "--two_stage", "--dn_number", "2",
+                         "--backbone", backbone]
+    out = tmp_path / "out"
+    res = main(get_args_parser().parse_args(argv + ["--output_dir", str(out), "--device",
+                                                    "cpu"]))
+    epoch = res["epochs"][0]
+    assert np.isfinite(epoch["stats"]["loss"]) and epoch["stats"]["grad_norm"] > 0
+    saved = torch.load(out / "0" / "checkpoint.pth", weights_only=False)["model"]
+    assert {"label_enc.weight", "transformer.tgt_embed.weight", "class_embed.0.weight"} <= set(
+        saved)
+    ev = main(get_args_parser().parse_args(argv + [
+        "--output_dir", str(tmp_path / "ev"), "--device", "cpu", "--eval", "--resume",
+        str(out / "0")]))
+    for k, v in epoch["scores"].items():
+        assert ev["scores"][0][k] == v or (np.isnan(v) and np.isnan(ev["scores"][0][k])), k
 
 
 @pytest.mark.parametrize("model", ["single_stage", "bf16_params"])

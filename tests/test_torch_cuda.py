@@ -22,7 +22,10 @@ the kernels do not take as they are (a misaligned or transposed value,
 bfloat16 locations, attention of another type) equals the plain version on
 the same inputs; so does it on a float16 or float64 value, both forms
 (float16 2e-3 and float64 1e-12 of dvalue's max: its sums are float32 or
-float64 atomics, and float16 rounds them once).
+float64 atomics, and float16 rounds them once). The DINO train step's
+decoder call (Lq 498: 300 matching + 198 CDN queries, B = 16) goes
+through the staged forward and backward kernels once each, the forward
+bit for bit in float32.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -932,3 +935,41 @@ def test_nccl_world_one_step_equals_the_plain_step(cuda, tmp_path):
         assert (l2 / sum((g0[n].double() ** 2).sum().item() for n in backbone)) ** 0.5 <= 1e-3
     finally:
         torch.distributed.destroy_process_group()
+
+
+#: the DINO decoder's cross-attention call: 300 matching + 198 CDN queries
+#: (`dn_number` 100: 33 groups x 2 x 3 slots), B = 16, at the main path's
+#: levels
+DN_DECODER = (16, 498, 8, 32, 4, ((28, 28), (14, 14), (7, 7), (4, 4)), (-1.0, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_dn_decoder_call_through_the_staged_kernels(cuda, dtype, monkeypatch):
+    """The Lq-498 decoder call of the DINO train step goes through the
+    staged forward and backward kernels (K1, and K3 or in bfloat16 K2), with
+    the forward bit for bit in float32 and the backward within TOL of the
+    plain version, and `ms_deform_attn` launches each once."""
+    monkeypatch.setitem(CASES, "dn_decoder", DN_DECODER)
+    value, shapes, loc, attn, gen = make_inputs("dn_decoder", dtype, cuda)
+    b, lq, m, d = DN_DECODER[:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    assert msda_cuda.staged_plan(shapes, d, dtype) is not None
+    assert msda_cuda.staged_plan(shapes, d, dtype, backward=True) is not None
+    counts = (msda_cuda.FWD_STAGED, msda_cuda.BWD_STAGED, msda_cuda.FWD_GENERAL,
+              msda_cuda.BWD_GENERAL)
+    before = [c.launches for c in counts]
+    v, lo, at = (x.clone().requires_grad_() for x in (value, loc.float(), attn))
+    out = ms_deform_attn(v, shapes, lo, at)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0, 0]
+    ref = ms_deform_attn_torch(value, shapes, loc, attn)
+    if dtype == torch.float32:
+        assert torch.equal(out.detach(), ref)
+    else:
+        assert_matches("out", out.detach(), ref, TOL[dtype])
+    ref_grads = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    grads = (v.grad, lo.grad, at.grad)
+    for name, o, r in zip(("dvalue", "dloc", "dattn"), grads, ref_grads):
+        assert_matches(name, o, r, TOL[dtype])

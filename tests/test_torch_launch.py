@@ -27,7 +27,9 @@ gathered eval, the merged meters and the CLI under torchrun), on the CPU.
     element's gradient is near zero); `evaluate` over 7 frames at a global val batch of 4
     (rank 1's share of the last batch is one frame) equals the one-process
     scores (1e-6 relative: a mean over another order of the same rows);
-    the meters merge; host rows gather with an empty rank;
+    the meters merge; host rows gather with an empty rank; the DINO
+    model's loss, each rank taking its rows of one injected global CDN
+    draw, equals the one-process loss (1e-5);
     `broadcast_params` makes rank 1's parameters rank 0's;
   - the CLI under `torch.distributed.run` with 2 processes: a `--debug`
     epoch of one step and its eval, only rank 0 writing the checkpoint and
@@ -282,6 +284,7 @@ _WORKER = textwrap.dedent("""
     mesh.broadcast_params(model)
     lds, params, _ = t.train_run(model, root, group, rank, 2)
     delta = t.sgd_delta(root, group, rank, 2)
+    res["dino"] = t.dino_loss(root, group, rank, 2)
     res["lds"], res["digest"] = lds, t.digest(params) + t.digest(delta)
     if rank == 0:  # rank 1's tensors are held against these by their digest
         res["params"], res["sgd_delta"] = params, delta
@@ -312,13 +315,13 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
-def tiny_port(seed=0):
+def tiny_port(seed=0, **kw):
     """The tiny model with seeded weights (`tests/test_torch_train.py`'s:
     the sampling offsets and attention weights drawn wider, so that the
-    samples spread over the levels)."""
+    samples spread over the levels); `kw` changes the model."""
     from uvhand_tpu_torch.models.detr import UVHandDETR
 
-    port = UVHandDETR(**CFG, generator=torch.Generator().manual_seed(seed), device="cpu")
+    port = UVHandDETR(**CFG, **kw, generator=torch.Generator().manual_seed(seed), device="cpu")
     rng = np.random.default_rng(1 + seed)
     with torch.no_grad():
         for name, p in port.named_parameters():
@@ -383,6 +386,28 @@ def sgd_delta(root, group, rank, world):
                                         process_group=group)
     step(first_batch(root, rank, world))
     return {n: before[n] - p.detach() for n, p in model.named_parameters()}
+
+
+def dino_loss(root, group, rank, world):
+    """The DINO model's loss dict on the first global batch (train mode,
+    dropout 0), every process taking its rows of one CDN draw made for the
+    global batch (`dn_number` 2)."""
+    from uvhand_tpu_torch import engine
+    from uvhand_tpu_torch.models.dn import prepare_cdn
+
+    model = tiny_port(dino_variant=True, use_dn=True, look_forward_twice=True,
+                      dn_number=2).train()
+    g = engine.to_device(first_batch(root, 0, 1), "cpu", engine.TRAIN_KEYS)
+    t = engine.dn_targets(g)
+    meta = prepare_cdn(torch.Generator().manual_seed(7), t["labels"], t["keypoints"],
+                       t["target_valid"], 14, model.cdn)
+    share = mesh.rank_slice(4, rank, world)
+    loss_fn = engine.make_loss_fn(model, *tiny_world(), img_res=float(RES), process_group=group)
+    with torch.no_grad():
+        _, ld = loss_fn(engine.to_device(first_batch(root, rank, world), "cpu",
+                                         engine.TRAIN_KEYS),
+                        None, {k: v[share] for k, v in meta.items()})
+    return {k: float(v) for k, v in ld.items()}
 
 
 def eval_run(root, rank, world):
@@ -459,6 +484,7 @@ def launched(root, tmp_path_factory):
             one = dict(zip(("lds", "params", "grads"), train_run(model, root, None, 0, 1)))
             one["labels"] = label_params(model)
             one["sgd_delta"] = sgd_delta(root, None, 0, 1)
+            one["dino"] = dino_loss(root, None, 0, 1)
             one["scores"] = eval_run(root, 0, 1)
             jax_lds = jax_train_run(root)
         finally:
@@ -579,6 +605,19 @@ def test_two_ranks_keep_the_parameters_of_the_one_process_run(two_ranks):
         big, q99 = (2.0, 5e-2) if group == "backbone" else (5e-2, 5e-3)
         assert e.max() <= big and np.quantile(e, 0.99) <= q99, (group, e.max(),
                                                                 np.quantile(e, 0.99))
+
+
+def test_two_ranks_compute_the_global_dino_loss(two_ranks):
+    """The DINO loss, each rank taking its rows of one injected global CDN
+    draw, equals the one-process loss (1e-5): the dn outputs and their
+    `dn_meta` are gathered, so the dn focal CE is normalised by the global
+    `num_boxes`."""
+    ranks, one, _ = two_ranks
+    assert ranks[0]["dino"] == ranks[1]["dino"]
+    assert {"loss_ce_dn", "loss_hand_keypoint_dn_0", "loss_obj_keypoint_dn"} <= set(one["dino"])
+    assert set(ranks[0]["dino"]) == set(one["dino"])
+    for k, v in one["dino"].items():
+        np.testing.assert_allclose(ranks[0]["dino"][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_two_ranks_evaluate_the_global_frames(two_ranks):

@@ -32,8 +32,12 @@ optimizer's state), ending in `torch.cuda.synchronize()`; the
 serving inputs vary between calls. Knobs, as in the root bench:
 UVHAND_BENCH_DTYPE=bfloat16|float32 (the headline mode alone),
 UVHAND_BENCH_ONLY=infer (serving alone), UVHAND_BENCH_INFER=0 and
-UVHAND_BENCH_LITE=0 (drop those lines). TF32 is off on the card, as in the
-CLI.
+UVHAND_BENCH_LITE=0 (drop those lines), UVHAND_BENCH_MODEL=dino (the DINO
+variant: contrastive denoising fed every train step, look-forward-twice;
+its decoder runs the 300 matching and 198 dn queries) and
+UVHAND_BENCH_BACKBONE=convnext (ConvNeXt-XL; `swin` names its ROADMAP item
+and times nothing). Every line names its model and backbone. TF32 is off on
+the card, as in the CLI.
 
 The reference publishes no throughput (BASELINE.md). `vs_baseline` is
 against REFERENCE_FPS_ESTIMATE, an estimate of the CUDA reference's train
@@ -78,15 +82,21 @@ def get_args_parser():
     return p
 
 
-class Bench:
-    """The batch, the world and the model's size of one bench run."""
+BACKBONES = {"": "resnet50", "resnet50": "resnet50", "convnext": "convnext_xlarge_22k"}
 
-    def __init__(self, args, device, batch_size: int, steps: int):
+
+class Bench:
+    """The batch, the world and the model of one bench run (`model_name`
+    "deformable_detr" or "dino", `backbone` one of `BACKBONES`' values)."""
+
+    def __init__(self, args, device, batch_size: int, steps: int,
+                 model_name: str = "deformable_detr", backbone: str = "resnet50"):
         from .data import arctic
         from .data.loader import DataLoader
         from .geometry import mano, objects
 
         self.args, self.device, self.steps = args, device, steps
+        self.dino, self.backbone = model_name == "dino", backbone
         bank = objects.synthetic_object_bank(2, device="cpu")
         with tempfile.TemporaryDirectory(prefix="uvhand_bench_") as root:
             # the object GT is consistent with the bank the steps use
@@ -113,6 +123,8 @@ class Bench:
                           num_encoder_layers=a.enc_layers, num_decoder_layers=a.dec_layers,
                           dim_feedforward=a.dim_feedforward, compute_dtype=dtype,
                           enc_lite=enc_lite_hi > 0, enc_lite_hi_every=enc_lite_hi or 3,
+                          dino_variant=self.dino, use_dn=self.dino,
+                          look_forward_twice=self.dino, backbone=self.backbone,
                           generator=torch.Generator().manual_seed(0), device=self.device)
 
     def _timed(self, one) -> float:
@@ -180,9 +192,19 @@ def main(argv=None) -> None:
     only_dtype = env("UVHAND_BENCH_DTYPE", "")
     budget_s = float(env("UVHAND_BENCH_BUDGET_S", 1200))
     hi = int(env("UVHAND_BENCH_ENC_LITE_HI", "6"))
-    bench = Bench(args, device, batch_size, int(env("UVHAND_BENCH_SCAN", 120)))
+    model_name = env("UVHAND_BENCH_MODEL", "") or "deformable_detr"
+    if model_name not in ("deformable_detr", "dino"):
+        raise ValueError(f"UVHAND_BENCH_MODEL={model_name!r}: deformable_detr or dino")
+    if env("UVHAND_BENCH_BACKBONE", "") == "swin":
+        _emit({"metric": "train_frames_per_sec_chip", "model": model_name,
+               "backbone": "swin_L_384_22k",
+               "skipped": "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"})
+        return
+    backbone = BACKBONES[env("UVHAND_BENCH_BACKBONE", "")]
+    bench = Bench(args, device, batch_size, int(env("UVHAND_BENCH_SCAN", 120)), model_name,
+                  backbone)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    where = {"batch": bench.frames,
+    where = {"batch": bench.frames, "model": model_name, "backbone": backbone,
              "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
 
     if env("UVHAND_BENCH_ONLY", "") == "infer":

@@ -12,8 +12,13 @@ The model options of the JAX CLI all run: the single-stage model (the
 default, without `--two_stage`), `--with_box_refine`, `--position_embedding
 learned`, `--no_aux_loss`, `--enc_lite` / `--enc_lite_hi_every`, `--remat`,
 `--bf16`, `--bf16_params` (bfloat16 parameters with stochastic rounding;
-implies `--bf16`) and `--sgd`. `--two_stage` without `--with_box_refine` is
-a model the JAX package cannot build either: it raises a ValueError.
+implies `--bf16`), `--sgd`, the DINO variant (`--modelname dino`, with
+contrastive denoising and look-forward-twice; `--use_dn` for the denoising
+queries alone; `--dn_number`, `--label_noise_scale`, `--box_noise_scale`)
+and the ConvNeXt-XL backbone (`--backbone convnext_xlarge_22k`).
+`--two_stage` without `--with_box_refine` (but for dino), and dino or
+`--use_dn` without `--two_stage`, are models the JAX package cannot build
+or train either: they raise a ValueError.
 
 It reads ARCTIC from `{coco_path}/{dataset_file}` (`data/arctic.py`),
 batches it (`data/loader.py`), trains with a checkpoint each epoch
@@ -228,8 +233,6 @@ def get_args_parser():
 
 UNPORTED = (
     # (is the option given?, what it is, its ROADMAP Queue 1 item)
-    (lambda a: a.use_dn or a.modelname == "dino", "--use_dn / --modelname dino",
-     "item 8 (DINO)"),
     (lambda a: a.method == "arctic_lstm", "--method arctic_lstm", "item 9 (temporal)"),
     (lambda a: a.temporal_head != "none", "--temporal_head", "item 9 (temporal)"),
     (lambda a: a.train_smoothnet, "--train_smoothnet", "item 9 (temporal)"),
@@ -241,8 +244,8 @@ UNPORTED = (
      "item 4 (the native image path)"),
     (lambda a: a.feature_type != "origin", "--feature_type global_fm|local_fm",
      "item 12 (cli/extract_features.py, which writes the features)"),
-    (lambda a: a.backbone != "resnet50", "--backbone other than resnet50",
-     "items 8 and 10 (ConvNeXt, Swin-L)"),
+    (lambda a: a.backbone not in ("resnet50", "convnext_xlarge_22k"),
+     "--backbone other than resnet50 and convnext_xlarge_22k", "item 10 (Swin-L)"),
     (lambda a: a.mp > 1, "--mp > 1", "item 6b (model parallelism)"),
     (lambda a: a.dataset_file in ("AssemblyHands", "H2O", "FPHA"),
      "the AssemblyHands/H2O/FPHA datasets", "item 11 (AssemblyHands / COCO family)"),
@@ -256,6 +259,12 @@ def check_ported(args) -> None:
     if given:
         raise SystemExit("uvhand_tpu_torch: not ported yet: " + "; ".join(
             f"{what} (ROADMAP Queue 1 {item})" for what, item in given))
+
+
+def onecycle_epochs(args) -> int:
+    """The epochs `--onecyclelr` schedules over: 32 for deformable_detr, 12
+    for dino (the reference's settings)."""
+    return 32 if args.modelname == "deformable_detr" else 12
 
 
 def build_world(args, device):
@@ -288,10 +297,15 @@ def build_world(args, device):
 def build_model(args, device):
     """The arctic_sf model of `args` on `device`, its weights drawn from a
     torch.Generator seeded with `--seed`. `--bf16_params` implies the bf16
-    compute mode, as in the JAX CLI."""
+    compute mode, and `--modelname dino` the denoising queries, with
+    look-forward-twice wherever they are on, as in the JAX CLI."""
     from ..models.detr import UVHandDETR
 
+    use_dn = args.modelname == "dino" or args.use_dn
     return UVHandDETR(
+        use_dn=use_dn, dino_variant=args.modelname == "dino", dn_number=args.dn_number,
+        dn_label_noise_ratio=args.label_noise_scale, dn_box_noise_scale=args.box_noise_scale,
+        look_forward_twice=use_dn, backbone=args.backbone,
         num_queries=args.num_queries, d_model=args.hidden_dim, n_heads=args.nheads,
         num_encoder_layers=args.enc_layers, num_decoder_layers=args.dec_layers,
         dim_feedforward=args.dim_feedforward, num_feature_levels=args.num_feature_levels,
@@ -330,7 +344,9 @@ def main(args) -> dict:
     os.makedirs(args.output_dir, exist_ok=True)
     if args.config_file:
         # SLConfig merge: cfg keys NOT already on args are added; --options
-        # overrides cfg
+        # overrides cfg. So a flag keeps its value (or default) over the
+        # file's: `-c configs/DINO/DINO_4scale.py` neither sets `use_dn`
+        # nor `modelname`, as in the JAX CLI
         from ..utils.slconfig import SLConfig
 
         cfg = SLConfig.fromfile(args.config_file)
@@ -390,7 +406,7 @@ def main(args) -> dict:
                                  sr_seed=args.seed)
     steps_per_epoch = max(len(dl_train), 1)
     if args.onecyclelr:
-        sched = onecycle_schedule(args.lr, steps_per_epoch * 32)  # deformable_detr's 32
+        sched = onecycle_schedule(args.lr, steps_per_epoch * onecycle_epochs(args))
     else:
         sched = step_schedule(args.lr, args.lr_drop * steps_per_epoch)
     scheduler = scheduled(optimizer, sched, args.lr)

@@ -80,7 +80,8 @@ def to_device(batch: Dict[str, np.ndarray], device, keys=EVAL_KEYS) -> Dict[str,
 
 def gather_global_batch(outputs, targets, group):
     """The model outputs that the criterion reads (the stacked decoder
-    layers, batch on axis 1, and the encoder's `interm_outputs`) and the
+    layers and the dn queries' per-layer outputs, batch on axis 1, the
+    encoder's `interm_outputs` and the `dn_meta`, batch on axis 0) and the
     processed targets (but the images) of the global batch, every
     process's share in rank order (`train.mesh.gather_batch`): only this
     process's rows carry autograd."""
@@ -88,27 +89,45 @@ def gather_global_batch(outputs, targets, group):
     if "interm_outputs" in outputs:
         out["interm_outputs"] = {k: gather_batch(v, 0, group)
                                  for k, v in outputs["interm_outputs"].items()}
+    if "dn_outputs" in outputs:
+        dn = outputs["dn_outputs"]
+        out["dn_outputs"] = {k: gather_batch(v, 1, group) for k, v in dn.items()
+                             if k != "dn_meta"}
+        out["dn_outputs"]["dn_meta"] = {k: gather_batch(v, 0, group)
+                                        for k, v in dn["dn_meta"].items()}
     return out, {k: gather_batch(v, 0, group) for k, v in targets.items() if k != "images"}
+
+
+def dn_targets(targets):
+    """The CDN inputs of a batch's processed targets: labels, keypoints, and
+    the slots valid in a valid frame."""
+    return {"labels": targets["labels"], "keypoints": targets["keypoints"],
+            "target_valid": targets["target_valid"].bool() & (targets["is_valid"][:, None] > 0)}
 
 
 def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weights=None,
                  cost_class: float = 1.5, cost_keypoint: float = 4.0, preprocess: bool = True,
                  process_group=None):
-    """-> loss_fn(batch of tensors, generator) -> (total, loss dict): the
-    training objective (the criterion reads from the outputs whether the
-    model is single-stage). The GT preprocessing carries no gradient.
-    `preprocess=False` reads processed targets from `batch["targets"]`.
-    With a `process_group`, `batch` is this process's share of the global
-    batch, and the loss is the global batch's (`gather_global_batch`)."""
+    """-> loss_fn(batch of tensors, generator, dn_meta=None) -> (total, loss
+    dict): the training objective (the criterion reads from the outputs
+    whether the model is single-stage). The GT preprocessing carries no
+    gradient. `preprocess=False` reads processed targets from
+    `batch["targets"]`. A model with `use_dn` gets the batch's CDN targets
+    (`dn_targets`), as the JAX package's step feeds them; a given `dn_meta`
+    (this process's rows) replaces the CDN draw. With a `process_group`,
+    `batch` is this process's share of the global batch, and the loss is
+    the global batch's (`gather_global_batch`)."""
+    use_dn = getattr(model, "use_dn", False)
 
-    def loss_fn(batch, generator):
+    def loss_fn(batch, generator, dn_meta=None):
         if preprocess:
             with torch.no_grad(), record_function("targets"):
                 targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
         else:
             targets = batch["targets"]
         with record_function("forward"):
-            outputs = model(batch["images"], generator=generator)
+            dn = dict(dn_targets=dn_targets(targets), dn_meta=dn_meta) if use_dn else {}
+            outputs = model(batch["images"], generator=generator, **dn)
         with record_function("criterion"):
             if process_group is not None:
                 outputs, targets = gather_global_batch(outputs, targets, process_group)
@@ -129,9 +148,9 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
 
     Runs on `device` (the CUDA card unless `device="cpu"`), where the model,
     the MANO/object tensors and the optimizer's parameters must already be.
-    Dropout and the feature mask draw from `generator` (a fresh one on the
-    device, seeded 0, when none is given). `grad_norm` is the global norm of
-    the raw gradients, taken before the clip. Every parameter gets a
+    Dropout, the feature mask and the CDN queries draw from `generator` (a
+    fresh one on the device, seeded 0, when none is given). `grad_norm` is
+    the global norm of the raw gradients, taken before the clip. Every parameter gets a
     gradient, zero where the loss does not reach it, so AdamW decays all of
     them as optax does. With bfloat16 parameters (the optimizer is a
     `train.state.StochasticRounding`) the gradients are widened to float32

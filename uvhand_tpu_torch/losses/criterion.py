@@ -9,7 +9,9 @@ For the single-stage model (its outputs carry no keypoints and no interm
 outputs, the JAX package's `two_stage=False`) the matching is by class
 alone and there is neither a keypoint loss nor an interm term. Every layer of `stacked` is summed whether or not
 the model was built with `aux_loss`, as in the JAX package. The denoising
-(DINO) and temporal branches are not ported.
+queries' outputs (`dn_outputs`, the DINO variant and `use_dn`) add the
+`*_dn` losses of `models/dn.py::dn_losses`, each weighted as its base name.
+The temporal branch is not ported.
 
 The JAX package vmaps the small loss over the decoder layers; here a Python
 loop over layers calls it once per layer, so every reduction in it -- the
@@ -20,7 +22,8 @@ the batch, as in the JAX package. Every data-dependent branch of the
 reference is a masked mean; nothing syncs with the host.
 
 Loss keys are the JAX package's: `name` for the last layer, `name_{l}` for
-layer l < L-1, `*_interm`, `cardinality_error` and `total`.
+layer l < L-1, `*_dn` / `*_dn_{l}`, `*_interm`, `cardinality_error` and
+`total`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..geometry import camera
 from ..geometry.mano import MANOModel, mano_forward
 from ..geometry.objects import ObjectBank, object_forward
 from ..geometry.rotations import axis_angle_to_matrix
+from ..models.dn import dn_losses
 from .matching import arctic_match
 
 NUM_OBJ_CLASSES = 11  # object classes 1..11; 12 / 13 are the left / right hand
@@ -339,6 +343,12 @@ def arctic_criterion(
         named += [(k, small[k]) for k in sorted(small)]
         for name, val in named:
             add(name if lvl == L - 1 else f"{name}_{lvl}", name, val)
+
+    if "dn_outputs" in outputs:
+        dn = outputs["dn_outputs"]
+        for key, val in dn_losses(dn["pred_logits"], dn["pred_hand_key"], dn["pred_obj_key"],
+                                  dn["dn_meta"], num_boxes).items():
+            add(key, key.split("_dn")[0], val)
 
     if "interm_outputs" in outputs:
         io = outputs["interm_outputs"]

@@ -48,11 +48,12 @@ class FrozenBatchNorm2d(nn.Module):
 
 
 class Conv2d(nn.Conv2d):
-    """A bias-free conv that computes in its input's type from its float32
-    weight, as a flax `nn.Conv(dtype=...)`."""
+    """A conv that computes in its input's type from its float32 weight and
+    bias, as a flax `nn.Conv(dtype=...)`."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def _conv(cin, cout, k, stride=1, padding=0):

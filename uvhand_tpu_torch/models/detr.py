@@ -1,7 +1,8 @@
-"""UVHand DETR: ResNet-50 + deformable transformer + output heads.
+"""UVHand DETR: backbone + deformable transformer + output heads.
 
-Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`,
-`backbone="resnet50"`, without the DINO and temporal variants:
+Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`, the
+ResNet-50 or ConvNeXt-XL backbone (`backbone="convnext_xlarge_22k"`), the
+DINO variant, without the temporal variants:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
     stride-2 3x3 level from the last backbone map,
   - position encoding: sine (the default) or learned
@@ -18,6 +19,23 @@ Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`,
     obj radian 1 (the non-class heads share weights across layers),
   - two-stage per-layer 42-d keypoint outputs and the encoder's interm
     outputs in [-1, 1] via sigmoid*2-1,
+  - the DINO variant (`dino_variant=True`, the CLI's `--modelname dino`):
+    sine position encoding at temperature 20 without the half-cell shift,
+    one class head and one pair of keypoint MLPs tied across the decoder
+    layers (the reference's `class_embed.{i}`, `key_embed.{i}`,
+    `obj_key_embed.{i}`, each the same module; the keypoint MLPs' last
+    layers start at zero), the encoder output's own heads, learned content
+    queries and per-layer query positions in the transformer;
+  - contrastive denoising (`use_dn`, on with the DINO variant; the
+    reference's CDN): in train mode, given `dn_targets` (or an injected
+    `dn_meta`), `models/dn.py` builds `2 x 3 x groups` noised queries from
+    the targets (drawn from the `generator`), `label_enc` embeds their
+    labels, and they go through the decoder ahead of the matching queries
+    under the CDN attention mask; their part of every head is split off
+    into `out["dn_outputs"]` with the `dn_meta` that made them. With
+    `look_forward_twice` (the CLI sets it with `use_dn`) each layer's
+    keypoint outputs stand on the undetached references of the layer
+    before,
   - `aux_loss=False` drops the `aux_outputs` key only, as the JAX model
     does: `stacked` keeps every layer, and the criterion reads that,
   - train mode (`model.train()`): dropout in the transformer and the
@@ -48,10 +66,14 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.msda import MSDeformAttn
+from .backbones import convnext
 from .backbones.resnet import RESNET50_CHANNELS, ResNet50
+from .dn import CdnConfig, cdn_attn_mask, prepare_cdn
 from .layers import Conv2d, GroupNorm, Linear
 from .posenc import LearnedPositionEncoding, sine_position_encoding
 from .transformer import MLP, DeformableTransformer, keep_mask
+
+BACKBONES = ("resnet50", "convnext_xlarge_22k")
 
 
 def resize_mask(mask: torch.Tensor, size) -> torch.Tensor:
@@ -92,33 +114,54 @@ class UVHandDETR(nn.Module):
                  aux_loss: bool = True, position_embedding: str = "sine",
                  enc_lite: bool = False, enc_lite_hi_every: int = 3, remat: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 param_dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32, backbone: str = "resnet50",
+                 use_dn: bool = False, dino_variant: bool = False, dn_number: int = 100,
+                 dn_label_noise_ratio: float = 0.5, dn_box_noise_scale: float = 1.0,
+                 look_forward_twice: bool = False,
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
         (the CUDA card unless `device="cpu"` is given), in eval mode.
         Raises ValueError on a combination the JAX model cannot build
-        (`two_stage=True, with_box_refine=False`)."""
+        (`two_stage=True, with_box_refine=False` but for the DINO variant;
+        the DINO variant or `use_dn` without `two_stage`)."""
         super().__init__()
         if position_embedding not in ("sine", "learned"):
             raise ValueError(f"unknown position_embedding {position_embedding!r}")
+        if backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        if use_dn and not two_stage:
+            # the JAX model embeds the dn query positions with the two-stage
+            # pos_trans MLP, which the single-stage model lacks
+            raise ValueError("use_dn=True with two_stage=False: the JAX model fails to train "
+                             "this combination (no pos_trans for the dn queries)")
         device = resolve_device(device)
         self.d_model = d_model
+        self.num_classes = num_classes
+        self.num_queries = num_queries
         self.feature_mask_ratio = feature_mask_ratio
         self.num_decoder_layers = num_decoder_layers
         self.num_feature_levels = num_feature_levels
         self.two_stage = two_stage
         self.aux_loss = aux_loss
+        self.dino = dino_variant
+        self.use_dn = use_dn
+        self.cdn = CdnConfig(dn_number, dn_label_noise_ratio, dn_box_noise_scale)
         # the reference's Joiner(backbone, position_embedding): the learned
-        # embedding's parameters sit in its slot 1
+        # embedding's parameters sit in its slot 1; the ResNet sits under
+        # slot 0's `.body`, the ConvNeXt in slot 0 itself
+        if backbone == "resnet50":
+            body, channels = _Joiner0(compute_dtype), RESNET50_CHANNELS
+        else:
+            body = convnext.ConvNeXt(convnext.CONVNEXT_XL_DEPTHS, convnext.CONVNEXT_XL_DIMS,
+                                     dtype=compute_dtype)
+            channels = body.channels
         self.backbone = nn.ModuleList(
-            [_Joiner0(compute_dtype)]
-            + ([LearnedPositionEncoding(d_model // 2)] if position_embedding == "learned"
-               else []))
-        nb = len(RESNET50_CHANNELS)
+            [body] + ([LearnedPositionEncoding(d_model // 2)] if position_embedding == "learned"
+                      else []))
+        nb = len(channels)
         self.input_proj = nn.ModuleList(
-            [InputProj(c, d_model) for c in RESNET50_CHANNELS]
-            + [InputProj(RESNET50_CHANNELS[-1] if i == nb else d_model, d_model,
-                         extra_level=True)
+            [InputProj(c, d_model) for c in channels]
+            + [InputProj(channels[-1] if i == nb else d_model, d_model, extra_level=True)
                for i in range(nb, num_feature_levels)])
         self.transformer = DeformableTransformer(
             d_model=d_model, n_heads=n_heads,
@@ -129,19 +172,33 @@ class UVHandDETR(nn.Module):
             dec_n_points=dec_n_points, enc_n_points=enc_n_points,
             num_queries=num_queries, dropout=dropout, two_stage=two_stage,
             with_box_refine=with_box_refine, enc_lite=enc_lite,
-            enc_lite_hi_every=enc_lite_hi_every, remat=remat, compute_dtype=compute_dtype)
+            enc_lite_hi_every=enc_lite_hi_every, remat=remat, compute_dtype=compute_dtype,
+            dino_variant=dino_variant, look_forward_twice=look_forward_twice,
+            num_classes=num_classes)
         if not two_stage:
             self.query_embed = nn.Embedding(num_queries, 2 * d_model)
+        if use_dn:
+            # the dn labels' embedding: num_classes + 1 rows, as the JAX
+            # model's (which creates it lazily; here it is built with the rest)
+            self.label_enc = nn.Embedding(num_classes + 1, d_model)
         # two-stage: the extra class and keypoint heads are the encoder's
-        num_pred = num_decoder_layers + 1 if two_stage else num_decoder_layers
-        if with_box_refine:
+        # (the DINO variant's encoder heads are the transformer's own)
+        num_pred = num_decoder_layers + 1 if two_stage and not dino_variant else num_decoder_layers
+        if dino_variant:
+            # ONE class head and ONE pair of keypoint MLPs, registered once
+            # per decoder layer under the reference DINO names
+            self.class_embed = nn.ModuleList([Linear(d_model, num_classes)] * num_pred)
+        elif with_box_refine:
             self.cls_embed = nn.ModuleList(Linear(d_model, num_classes) for _ in range(num_pred))
         else:  # the reference registers ONE class head num_pred times
             self.cls_embed = nn.ModuleList([Linear(d_model, num_classes)] * num_pred)
         # keypoint heads only where the JAX model calls them (the refinement
         # of the two-stage box-refine model); it has no parameters elsewhere
         self.key_embed = self.obj_key_embed = None
-        if self.transformer.refine:
+        if dino_variant:
+            self.key_embed = nn.ModuleList([MLP(d_model, d_model, 42, 3)] * num_pred)
+            self.obj_key_embed = nn.ModuleList([MLP(d_model, d_model, 42, 3)] * num_pred)
+        elif self.transformer.refine:
             self.key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3) for _ in range(num_pred))
             self.obj_key_embed = nn.ModuleList(MLP(d_model, d_model, 42, 3)
                                                for _ in range(num_pred))
@@ -157,10 +214,12 @@ class UVHandDETR(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Random weights from `generator`: xavier-uniform linears and convs
-        with zero biases, the MSDA offset/attention init, level embeddings
-        and learned queries ~ N(0, 1), learned position embeddings ~ U(0, 1),
-        the focal-loss prior on the class biases, and the two-stage xy
-        spread at logit(0.05)."""
+        with zero biases, the MSDA offset/attention init, level embeddings,
+        learned queries, the DINO content queries and the dn label
+        embedding ~ N(0, 1), learned position embeddings ~ U(0, 1), the
+        focal-loss prior on the class biases, the two-stage xy spread at
+        logit(0.05), and in the DINO variant zero last layers of the keypoint
+        MLPs."""
         for mod in self.modules():
             # (the backbone's bias-free convs are drawn by its own reset below)
             if isinstance(mod, (nn.Linear, nn.Conv2d)) and mod.bias is not None:
@@ -169,19 +228,43 @@ class UVHandDETR(nn.Module):
             elif isinstance(mod, nn.MultiheadAttention):
                 nn.init.xavier_uniform_(mod.in_proj_weight, generator=generator)
                 nn.init.zeros_(mod.in_proj_bias)
-        self.backbone[0].body.reset_parameters(generator)
+        self.body.reset_parameters(generator)
         for mod in self.modules():
             if isinstance(mod, MSDeformAttn):
                 mod.reset_parameters(generator)
-        self.transformer.level_embed.normal_(0.0, 1.0, generator=generator)
+        t = self.transformer
+        t.level_embed.normal_(0.0, 1.0, generator=generator)
         if self.two_stage:
-            self.transformer.two_stage_learn_xy.weight.fill_(math.log(0.05 / (1 - 0.05)))
+            t.learn_xy.weight.fill_(math.log(0.05 / (1 - 0.05)))
         else:
             self.query_embed.weight.normal_(0.0, 1.0, generator=generator)
+        if self.dino:
+            t.tgt_embed.weight.normal_(0.0, 1.0, generator=generator)
+        if self.use_dn:
+            self.label_enc.weight.normal_(0.0, 1.0, generator=generator)
         if len(self.backbone) > 1:
             self.backbone[1].reset_parameters(generator)
-        for head in self.cls_embed:
-            head.bias.fill_(-math.log((1 - 0.01) / 0.01))
+        prior = -math.log((1 - 0.01) / 0.01)
+        for head in self.cls_heads:
+            head.bias.fill_(prior)
+        if self.dino:
+            t.enc_out_class_embed.bias.fill_(prior)
+            for mlp in (self.key_embed[0], self.obj_key_embed[0], t.enc_out_key_embed,
+                        t.enc_out_obj_key_embed):
+                mlp.layers[-1].weight.zero_()
+
+    @property
+    def body(self) -> nn.Module:
+        """The backbone network: the ResNet under the Joiner's slot 0, or the
+        ConvNeXt in it."""
+        slot = self.backbone[0]
+        return slot.body if isinstance(slot, _Joiner0) else slot
+
+    @property
+    def cls_heads(self) -> nn.ModuleList:
+        """The class heads, one per decoder layer (+1 for the two-stage
+        encoder but in the DINO variant), under the reference's name."""
+        return self.class_embed if self.dino else self.cls_embed
 
     def _feature_mask(self, x: torch.Tensor, generator: torch.Generator | None):
         if not self.training or self.feature_mask_ratio <= 0:
@@ -195,7 +278,7 @@ class UVHandDETR(nn.Module):
         for every level, from NHWC images."""
         # the input projections promote the compute-type maps to their
         # parameters' type, as flax does
-        feats = self.backbone[0].body(images.permute(0, 3, 1, 2))
+        feats = self.body(images.permute(0, 3, 1, 2))
         B, H, W, _ = images.shape
         if image_mask is None:
             image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
@@ -206,28 +289,56 @@ class UVHandDETR(nn.Module):
         masks = [resize_mask(image_mask, s.shape[-2:]) for s in srcs]
         if len(self.backbone) > 1:
             poses = [self.backbone[1](m) for m in masks]
+        elif self.dino:  # PositionEmbeddingSineHW: temperature 20, no half-cell shift
+            poses = [sine_position_encoding(m, self.d_model // 2, temperature=20.0,
+                                            center_shift=False) for m in masks]
         else:
             poses = [sine_position_encoding(m, self.d_model // 2) for m in masks]
         return srcs, masks, poses
 
     def forward(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, dn_targets: dict | None = None,
+                dn_meta: dict | None = None):
         """images (B, H, W, 3) NHWC; image_mask (B, H, W) True = padding;
-        `generator` feeds dropout and the feature mask in train mode."""
+        `generator` feeds dropout, the feature mask and the CDN draws in
+        train mode. With `use_dn`, in train mode, `dn_targets` ({"labels",
+        "keypoints", "target_valid"} of the batch) gives the CDN queries,
+        drawn from `generator`; a given `dn_meta` (`models/dn.py::
+        noise_cdn`'s dict) replaces the draw."""
         srcs, masks, poses = self.level_features(images, image_mask, generator)
+        dn = None
+        if self.use_dn and self.training and (dn_targets is not None or dn_meta is not None):
+            if dn_meta is None:
+                dn_meta = prepare_cdn(generator, dn_targets["labels"], dn_targets["keypoints"],
+                                      dn_targets["target_valid"], self.num_classes, self.cdn)
+            dn = (self.label_enc(dn_meta["dn_labels_noised"]), dn_meta["dn_keys_unact"],
+                  cdn_attn_mask(self.num_queries, self.cdn, images.device))
         t_out = self.transformer(
-            srcs, masks, poses, self.cls_embed, self.key_embed, self.obj_key_embed, generator,
-            query_embed=None if self.two_stage else self.query_embed.weight)
-        hs = t_out["hs"]  # (n_dec, B, Q, C)
+            srcs, masks, poses, self.cls_heads, self.key_embed, self.obj_key_embed, generator,
+            query_embed=None if self.two_stage else self.query_embed.weight, dn=dn)
+        hs = t_out["hs"]  # (n_dec, B, P + Q, C)
+        logits = t_out["pred_logits"].float()
+        hand_key = t_out["pred_hand_key"]
+        obj_key = t_out["pred_obj_key"]
+        num_dn = t_out["num_dn"]
+        dn_out = None
+        if num_dn:
+            # the dn part of every head, split off
+            dn_out = {
+                "pred_logits": logits[:, :, :num_dn],
+                "pred_hand_key": None if hand_key is None else hand_key[:, :, :num_dn],
+                "pred_obj_key": None if obj_key is None else obj_key[:, :, :num_dn],
+                "dn_meta": dn_meta,
+            }
+            hs, logits = hs[:, :, num_dn:], logits[:, :, num_dn:]
+            if hand_key is not None:
+                hand_key, obj_key = hand_key[:, :, num_dn:], obj_key[:, :, num_dn:]
         pose = self.mano_pose_embed[0](hs)
         beta = self.mano_beta_embed[0](hs)
         hand_cam = self.hand_cam[0](hs)
         obj_cam = self.obj_cam[0](hs)
         obj_rot = self.obj_rot[0](hs)
         obj_rad = self.obj_rad[0](hs)
-        logits = t_out["pred_logits"].float()
-        hand_key = t_out["pred_hand_key"]
-        obj_key = t_out["pred_obj_key"]
 
         def layer_out(lvl):
             return {
@@ -261,4 +372,6 @@ class UVHandDETR(nn.Module):
                 "pred_hand_key": torch.sigmoid(enc["pred_hand_key_unact"]) * 2 - 1,
                 "pred_obj_key": torch.sigmoid(enc["pred_obj_key_unact"]) * 2 - 1,
             }
+        if dn_out is not None:
+            out["dn_outputs"] = dn_out
         return out

@@ -1,7 +1,7 @@
 """2D position embeddings (DETR style), as in `uvhand_tpu/models/posenc.py`:
 the sine one (normalize=True, scale=2*pi, temperature 10000, cumsum shifted
-by -0.5 to the cell centres) and the learned one (a 50x50 grid of row and
-column embeddings)."""
+by -0.5 to the cell centres; the DINO variant's has temperature 20 and no
+shift) and the learned one (a 50x50 grid of row and column embeddings)."""
 
 from __future__ import annotations
 
@@ -24,13 +24,18 @@ def sine_position_encoding(
     temperature: float = 10000.0,
     scale: float = 2 * math.pi,
     eps: float = 1e-6,
+    center_shift: bool = True,
 ) -> torch.Tensor:
-    """Returns (B, H, W, 2*num_pos_feats), channels [y-embedding, x-embedding]."""
+    """Returns (B, H, W, 2*num_pos_feats), channels [y-embedding, x-embedding].
+    `center_shift=False, temperature=20.0` is the DINO variant's
+    (`PositionEmbeddingSineHW`): the cumsum is not shifted to the cell
+    centres."""
     not_mask = (~mask).float()
     y_embed = torch.cumsum(not_mask, 1)
     x_embed = torch.cumsum(not_mask, 2)
-    y_embed = (y_embed - 0.5) / (y_embed[:, -1:, :] + eps) * scale
-    x_embed = (x_embed - 0.5) / (x_embed[:, :, -1:] + eps) * scale
+    shift = 0.5 if center_shift else 0.0
+    y_embed = (y_embed - shift) / (y_embed[:, -1:, :] + eps) * scale
+    x_embed = (x_embed - shift) / (x_embed[:, :, -1:] + eps) * scale
 
     dim_t = torch.arange(num_pos_feats, dtype=torch.float32, device=mask.device)
     dim_t = temperature ** (2 * torch.floor(dim_t / 2) / num_pos_feats)

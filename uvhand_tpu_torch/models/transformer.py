@@ -1,5 +1,5 @@
 """Deformable transformer with 42-dim (21-keypoint) reference points, as
-`uvhand_tpu/models/transformer.py` builds it without the DINO variant:
+`uvhand_tpu/models/transformer.py` builds it:
 
   - encoder: MSDA self-attention over the flattened multi-scale features with
     per-level embeddings and grid reference points; with `enc_lite` (the JAX
@@ -18,7 +18,20 @@
   - decoder: MHA self-attention + MSDA cross-attention, iterative reference
     refinement gated by the per-layer argmax class (hands {12, 13}; class 0
     frozen) in the two-stage box-refine model; reference points live in
-    [-1, 1] via `sigmoid()*2-1`, a parity quirk of the reference.
+    [-1, 1] via `sigmoid()*2-1`, a parity quirk of the reference,
+  - the DINO variant (`dino_variant`): learned content queries
+    (`tgt_embed`), a per-layer query position (`decoder.ref_point_head` of
+    `sine_embed_42` of the layer's level-0 reference input), a norm on every
+    decoder output (`decoder.norm`; the refinement reads the raw output,
+    the reported logits and keypoints the normed one), the encoder output's
+    own heads (`enc_out_*`), proposals added per dimension, and interm
+    keys detached and hand/object swapped, as the JAX model has them,
+  - contrastive denoising (`dn`): the CDN queries' content and references
+    go ahead of the matching queries, the decoder self-attention under the
+    CDN mask (the `use_dn`-alone model embeds their position with
+    `pos_trans`), and `num_dn` is returned,
+  - look-forward-twice: each layer's keypoint outputs stand on the
+    undetached reference the layer before made.
 
 In train mode (`module.train()`) dropout is on, as in the JAX package's
 `Drop` and its decoder self-attention's weight dropout, drawing from the
@@ -123,14 +136,17 @@ class Drop(nn.Module):
 
 
 def self_attention(mha: nn.MultiheadAttention, q, v, rate: float,
-                   generator: torch.Generator | None, dtype: torch.dtype = torch.float32):
+                   generator: torch.Generator | None, dtype: torch.dtype = torch.float32,
+                   attn_mask: torch.Tensor | None = None):
     """Multi-head attention from `mha`'s own `in_proj_*` / `out_proj`, as
     flax's `MultiHeadDotProductAttention(dtype=dtype)` computes it: every
     projection, the scores, the softmax and the output in `dtype` (flax
     upcasts nowhere), queries divided by sqrt(head_dim) in `dtype` before
     the product, and in train mode dropout on the softmaxed weights with
     ONE (Lq, Lk) keep mask broadcast over batch and heads (flax's
-    `broadcast_dropout=True`), its 1 / keep also in `dtype`."""
+    `broadcast_dropout=True`), its 1 / keep also in `dtype`. `attn_mask`
+    (Lq, Lk) bool, True = blocked (the CDN mask), sets those scores to the
+    least finite value of `dtype` before the softmax, as flax does."""
     B, N, E = q.shape
     h = mha.num_heads
     w_q, w_k, w_v = mha.in_proj_weight.to(dtype).chunk(3)
@@ -141,7 +157,10 @@ def self_attention(mha: nn.MultiheadAttention, q, v, rate: float,
         return F.linear(x, w, b).view(B, -1, h, E // h).transpose(1, 2)  # (B, h, n, hd)
 
     qh = heads(q, w_q, b_q) / rounded(math.sqrt(E // h), dtype)
-    weights = torch.softmax(qh @ heads(q, w_k, b_k).transpose(-1, -2), -1)
+    scores = qh @ heads(q, w_k, b_k).transpose(-1, -2)
+    if attn_mask is not None:
+        scores = scores.masked_fill(attn_mask, torch.finfo(dtype).min)
+    weights = torch.softmax(scores, -1)
     if mha.training and rate > 0.0:
         keep = 1.0 - rate
         mask = keep_mask(weights.shape[-2:], keep, generator, q.device)
@@ -200,10 +219,11 @@ class DecoderLayer(nn.Module):
         self.drop = Drop(dropout)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
-                generator=None):
+                generator=None, self_attn_mask=None):
+        """`self_attn_mask` (Lq, Lq) bool, True = blocked: the CDN mask."""
         q = tgt + query_pos
         tgt2 = self_attention(self.self_attn, q, tgt, self.drop.rate, generator,
-                              self.compute_dtype)
+                              self.compute_dtype, self_attn_mask)
         tgt = self.norm2(tgt + self.drop(tgt2, generator))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
@@ -243,6 +263,19 @@ def proposal_pos_embed(proposals: torch.Tensor, num_pos_feats: int = 128,
     p = torch.sigmoid(proposals) * scale
     pos = interleaved_sincos(p[..., None] / dim_t)  # (B, Q, 42, F)
     return pos.to(dtype).flatten(2)
+
+
+def sine_embed_42(pos: torch.Tensor) -> torch.Tensor:
+    """The DINO variant's per-layer query position embedding of 42-d
+    reference points: the mean of the 21 x and of the 21 y coordinates, each
+    as a 128-d sine embedding, (B, Q, 256) ordered [y, x]."""
+    dim_t = torch.arange(128, dtype=torch.float32, device=pos.device)
+    dim_t = 10000.0 ** (2 * torch.floor(dim_t / 2) / 128)
+    scale = 2 * math.pi
+    x = pos[..., 0::2].mean(-1) * scale
+    y = pos[..., 1::2].mean(-1) * scale
+    return torch.cat([interleaved_sincos(y[..., None] / dim_t),
+                      interleaved_sincos(x[..., None] / dim_t)], -1)
 
 
 # sentinel for invalid two-stage proposals (sigmoid(1e4) == 1.0 in fp32)
@@ -291,9 +324,15 @@ class DeformableTransformer(nn.Module):
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
                  dec_n_points=4, enc_n_points=4, num_queries=300, dropout=0.1,
                  two_stage=True, with_box_refine=True, enc_lite=False, enc_lite_hi_every=3,
-                 remat=False, compute_dtype=torch.float32):
+                 remat=False, compute_dtype=torch.float32, dino_variant=False,
+                 look_forward_twice=False, num_classes=14):
         super().__init__()
-        if two_stage and not with_box_refine:
+        if dino_variant and not two_stage:
+            # the JAX model builds the per-layer query-position MLP with the
+            # two-stage parts only, and then calls it in every decoder layer
+            raise ValueError("dino_variant=True with two_stage=False: the JAX model fails to "
+                             "build this combination (no ref_point_head)")
+        if two_stage and not (with_box_refine or dino_variant):
             # the JAX model builds no keypoint heads there and then indexes
             # them for the encoder's proposals
             raise ValueError("two_stage=True with with_box_refine=False: the JAX model fails "
@@ -304,7 +343,9 @@ class DeformableTransformer(nn.Module):
         self.num_queries = num_queries
         self.num_decoder_layers = num_decoder_layers
         self.two_stage = two_stage
-        self.refine = two_stage and with_box_refine
+        self.dino = dino_variant
+        self.refine = two_stage and (with_box_refine or dino_variant)
+        self.look_forward_twice = look_forward_twice
         self.enc_lite = enc_lite
         self.enc_lite_hi_every = enc_lite_hi_every
         self.remat = remat
@@ -320,6 +361,19 @@ class DeformableTransformer(nn.Module):
         if two_stage:
             self.enc_output = Linear(d_model, d_model)
             self.enc_output_norm = LayerNorm(d_model, eps=1e-5)
+        if dino_variant:
+            # learned content queries, the per-layer query-position MLP of
+            # the 256-d sine embedding, the norm of every decoder output, and
+            # the encoder output's own heads (the decoder's are tied, on
+            # UVHandDETR); the xy spread under DINO's name
+            self.tgt_embed = nn.Embedding(num_queries, d_model)
+            self.decoder.ref_point_head = MLP(256, d_model, d_model, 2)
+            self.decoder.norm = LayerNorm(d_model, eps=1e-5)
+            self.enc_out_class_embed = Linear(d_model, num_classes)
+            self.enc_out_key_embed = MLP(d_model, d_model, 42, 3)
+            self.enc_out_obj_key_embed = MLP(d_model, d_model, 42, 3)
+            self.two_stage_wh_embedding = nn.Embedding(1, 40)
+        elif two_stage:
             self.pos_trans = nn.Sequential(
                 nn.Linear(42 * 128, 1024), nn.ReLU(),
                 nn.Linear(1024, 1024), nn.ReLU(),
@@ -329,6 +383,12 @@ class DeformableTransformer(nn.Module):
             self.two_stage_learn_xy = nn.Embedding(1, 40)
         else:
             self.reference_points = Linear(d_model, 2)
+
+    @property
+    def learn_xy(self) -> nn.Embedding:
+        """The two-stage proposals' learned xy spread (DINO's name for it is
+        `two_stage_wh_embedding`)."""
+        return self.two_stage_wh_embedding if self.dino else self.two_stage_learn_xy
 
     def _layer(self, layer, generator, *args, **kwargs):
         """`layer(*args, generator=generator, **kwargs)`, rematerialized in
@@ -342,7 +402,7 @@ class DeformableTransformer(nn.Module):
         """(memory', proposals): gen_encoder_output_proposals."""
         B = memory.shape[0]
         dev = memory.device
-        learn_xy = torch.sigmoid(self.two_stage_learn_xy.weight[0])  # (40,)
+        learn_xy = torch.sigmoid(self.learn_xy.weight[0])  # (40,)
         props = []
         cur = 0
         for lvl, (H, W) in enumerate(spatial_shapes):
@@ -367,19 +427,31 @@ class DeformableTransformer(nn.Module):
         mem = mem.masked_fill(~valid, 0.0)
         return self.enc_output_norm(self.enc_output(mem)), proposals
 
+    def _pos_trans(self, pe: torch.Tensor) -> torch.Tensor:
+        """The proposal-embedding MLP and its norm: (B, Q, 42*128) -> (B, Q, 2C)."""
+        for lin in self.pos_trans[::2]:  # the three linears, each followed by a ReLU
+            pe = torch.relu(dense(lin, pe, self.compute_dtype))
+        return self.pos_trans_norm(pe)
+
     def _two_stage_inputs(self, memory, mask_flat, spatial_shapes, cls_embed, key_embed,
                           obj_key_embed):
-        """The decoder's queries, query positions and 42-d references from
-        the encoder's top-k proposals, and the interm outputs."""
+        """The decoder's queries, query positions (None for the DINO variant,
+        whose are per layer) and 42-d references from the encoder's top-k
+        proposals, and the interm outputs."""
         nd = self.num_decoder_layers
         out_mem, out_props = self._gen_proposals(memory, mask_flat, spatial_shapes)
-        enc_cls = cls_embed[nd](out_mem)
-        enc_hand = key_embed[nd](out_mem)
-        enc_obj = obj_key_embed[nd](out_mem)
-        # root x added to the even dims, root y to the odd dims
-        root = out_props[..., 0:2].repeat(1, 1, 21)
-        enc_hand = enc_hand + root
-        enc_obj = enc_obj + root
+        if self.dino:
+            enc_cls = self.enc_out_class_embed(out_mem)
+            # the proposal added per dimension: the non-root dims get the
+            # learned spread
+            enc_hand = self.enc_out_key_embed(out_mem) + out_props
+            enc_obj = self.enc_out_obj_key_embed(out_mem) + out_props
+        else:
+            enc_cls = cls_embed[nd](out_mem)
+            # root x added to the even dims, root y to the odd dims
+            root = out_props[..., 0:2].repeat(1, 1, 21)
+            enc_hand = key_embed[nd](out_mem) + root
+            enc_obj = obj_key_embed[nd](out_mem) + root
 
         scores = enc_cls.max(-1).values
         # largest first, the lower index first among equal scores: the order
@@ -394,16 +466,25 @@ class DeformableTransformer(nn.Module):
         hand_m, obj_m = _class_masks(cls_idx)
         # the decoder's initial references carry no gradient back into the
         # encoder heads (they train through the interm outputs only)
+        hand_kp, obj_kp = take(enc_hand).detach(), take(enc_obj).detach()
         ref_unact = take(out_props).detach()
-        ref_unact = torch.where(obj_m[..., None], take(enc_obj).detach(), ref_unact)
-        ref_unact = torch.where(hand_m[..., None], take(enc_hand).detach(), ref_unact)
+        ref_unact = torch.where(obj_m[..., None], obj_kp, ref_unact)
+        ref_unact = torch.where(hand_m[..., None], hand_kp, ref_unact)
         reference_points = torch.sigmoid(ref_unact) * 2 - 1  # [-1, 1] quirk
 
-        dt = self.compute_dtype
-        pt = proposal_pos_embed(ref_unact, dtype=dt)
-        for lin in self.pos_trans[::2]:  # the three linears, each followed by a ReLU
-            pt = torch.relu(dense(lin, pt, dt))
-        pt = self.pos_trans_norm(pt)
+        if self.dino:
+            tgt = self.tgt_embed.weight[None].expand(memory.shape[0], -1, -1)
+            # the interm logits from the undetached top-k memory; the interm
+            # keys detached and hand/object SWAPPED, as the JAX model (and
+            # the reference) does
+            enc_outputs = {
+                "pred_logits": self.enc_out_class_embed(take(out_mem)),
+                "pred_hand_key_unact": obj_kp,
+                "pred_obj_key_unact": hand_kp,
+            }
+            return tgt, None, reference_points, enc_outputs
+
+        pt = self._pos_trans(proposal_pos_embed(ref_unact, dtype=self.compute_dtype))
         query_pos, tgt = torch.split(pt, self.d_model, -1)
         enc_outputs = {
             "pred_logits": enc_cls,
@@ -422,6 +503,7 @@ class DeformableTransformer(nn.Module):
         obj_key_embed: nn.ModuleList | None,  # object keypoint MLPs (likewise)
         generator: torch.Generator | None = None,  # dropout draws (train mode)
         query_embed: torch.Tensor | None = None,  # (Q, 2C) learned queries (single stage)
+        dn: tuple | None = None,  # CDN: (content (B, P, C), refs unact (B, P, 42), mask)
     ):
         spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
         B = srcs[0].shape[0]
@@ -464,8 +546,23 @@ class DeformableTransformer(nn.Module):
             tgt = tgt[None].expand(B, -1, -1)
             reference_points = torch.sigmoid(self.reference_points(query_pos))
 
-        # ---- decoder, with gated reference refinement (two-stage box refine) ----
-        hs_list, refs_in, logits_list, hand_keys, obj_keys = [], [], [], [], []
+        # ---- contrastive-denoising queries, ahead of the matching ones ----
+        num_dn, self_attn_mask = 0, None
+        if dn is not None:
+            dn_tgt, dn_refs_unact, self_attn_mask = dn
+            num_dn = dn_tgt.shape[1]
+            if query_pos is not None:  # `use_dn` alone: a fixed dn query position
+                dn_pos = self._pos_trans(proposal_pos_embed(dn_refs_unact))
+                query_pos = torch.cat([dn_pos[..., :self.d_model], query_pos], 1)
+            tgt = torch.cat([dn_tgt, tgt], 1)
+            reference_points = torch.cat([torch.sigmoid(dn_refs_unact) * 2 - 1,
+                                          reference_points], 1)
+
+        # ---- decoder, with gated reference refinement (two-stage) ----
+        hs_list, refs_in, logits_list, deltas = [], [], [], []
+        # the refs entering each layer with their gradient into the previous
+        # layer's refinement (look-forward-twice)
+        refs_undet = [reference_points]
         output = tgt
         ref = reference_points
         if ref.shape[-1] == 42:
@@ -474,28 +571,47 @@ class DeformableTransformer(nn.Module):
             vr = valid_ratios[:, None]  # (B, 1, L, 2)
         for lid, layer in enumerate(self.decoder.layers):
             refs_in.append(ref)
-            output = self._layer(layer, generator, output, query_pos, ref[:, :, None] * vr,
-                                 memory, spatial_shapes, mask_flat)
-            hs_list.append(output)
+            ref_input = ref[:, :, None] * vr
+            if self.dino:
+                # the per-layer query position, from the level-0 reference input
+                query_pos = self.decoder.ref_point_head(sine_embed_42(ref_input[:, :, 0]))
+            output = self._layer(layer, generator, output, query_pos, ref_input,
+                                 memory, spatial_shapes, mask_flat,
+                                 self_attn_mask=self_attn_mask)
+            # the DINO variant norms every output it reports; the refinement
+            # reads the raw one
+            normed = self.decoder.norm(output) if self.dino else output
+            hs_list.append(normed)
             logits = cls_embed[lid](output)
-            logits_list.append(logits)
+            logits_list.append(cls_embed[lid](normed) if self.dino else logits)
             if not self.refine:
                 continue
             hand_m, obj_m = _class_masks(logits.argmax(-1))
             d_hand = key_embed[lid](output)
             d_obj = obj_key_embed[lid](output)
-            # per-layer keypoint outputs: delta + inverse_sigmoid(ref input);
-            # the ref input is detached, so the keypoint heads train through
-            # these outputs only
-            base = inverse_sigmoid(ref)
-            hand_keys.append(torch.sigmoid(d_hand + base) * 2 - 1)
-            obj_keys.append(torch.sigmoid(d_obj + base) * 2 - 1)
+            deltas.append((d_hand, d_obj))
             delta = torch.where(hand_m[..., None], d_hand,
                                 torch.where(obj_m[..., None], d_obj, 0.0))
-            ref = (torch.sigmoid(base + delta) * 2 - 1).detach()
+            new_ref = torch.sigmoid(inverse_sigmoid(ref) + delta) * 2 - 1
+            refs_undet.append(new_ref)
+            ref = new_ref.detach()
+
+        # per-layer keypoint outputs: delta + inverse_sigmoid(the layer's ref
+        # input), detached but under look-forward-twice, so the keypoint
+        # heads train through these outputs (and, look-forward-twice, each
+        # layer's refinement through the next layer's outputs)
+        if self.look_forward_twice and self.refine:
+            refs_in = refs_undet[:self.num_decoder_layers]
+        hand_keys, obj_keys = [], []
+        for lid, d in enumerate(deltas):
+            if self.dino:  # the heads read the normed output here
+                d = (key_embed[lid](hs_list[lid]), obj_key_embed[lid](hs_list[lid]))
+            base = inverse_sigmoid(refs_in[lid])
+            hand_keys.append(torch.sigmoid(d[0] + base) * 2 - 1)
+            obj_keys.append(torch.sigmoid(d[1] + base) * 2 - 1)
 
         return {
-            "hs": torch.stack(hs_list),  # (n_dec, B, Q, C)
+            "hs": torch.stack(hs_list),  # (n_dec, B, P + Q, C)
             "init_reference": reference_points,
             "refs_in": torch.stack(refs_in),
             "pred_logits": torch.stack(logits_list),
@@ -503,4 +619,5 @@ class DeformableTransformer(nn.Module):
             "pred_obj_key": torch.stack(obj_keys) if self.refine else None,
             "enc_outputs": enc_outputs,
             "memory": memory,
+            "num_dn": num_dn,
         }

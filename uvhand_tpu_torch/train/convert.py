@@ -2,12 +2,18 @@
 
 `state_dict_from_jax(params)` maps a flax `UVHandDETR` tree
 (`{'params': ...}` of numpy arrays; sine or learned position encoding,
-two-stage with box refinement or single-stage) onto the port's
-`state_dict`, whose names are the upstream reference's state-dict names.
-It is the inverse of the JAX package's `convert_reference_detr`, and names
-the leaves that converter lacks as the reference does:
+two-stage with box refinement or single-stage, the DINO variant, `use_dn`,
+the ResNet-50 or ConvNeXt backbone) onto the port's `state_dict`, whose
+names are the upstream reference's state-dict names. It is the inverse of
+the JAX package's `convert_reference_detr` (and, for the ConvNeXt, of its
+`convert_convnext_checkpoint`), and names the leaves those lack as the
+reference does:
 
   backbone/*                       -> backbone.0.body.*  (torchvision names)
+  backbone/stem_conv, stem_norm    -> backbone.0.downsample_layers.0.{0,1}
+  backbone/down{i}_norm, _conv     -> backbone.0.downsample_layers.{i}.{0,1}
+  backbone/stage{i}_block{j}/*     -> backbone.0.stages.{i}.{j}.* (ConvNeXt)
+  backbone/out_norm{i}             -> backbone.0.norm{i}
   pos_embed/{row,col}_embed        -> backbone.1.{row,col}_embed.weight (the
                                       learned embedding in the reference
                                       Joiner's slot 1; the JAX converter has
@@ -27,6 +33,17 @@ the leaves that converter lacks as the reference does:
   mano_pose_head (one module)      -> mano_pose_embed.{0..n} (likewise beta,
                                       cams, rot, rad: the reference
                                       registers the same module n times)
+  label_enc/embedding              -> label_enc.weight (`use_dn`)
+DINO variant (a `tgt_embed` leaf), the reference DINO names:
+  transformer/tgt_embed            -> transformer.tgt_embed.weight
+  transformer/two_stage_learn_xy   -> transformer.two_stage_wh_embedding.weight
+  transformer/ref_point_head/layer{j} -> transformer.decoder.ref_point_head.layers.{j}
+  transformer/decoder_norm         -> transformer.decoder.norm
+  transformer/cls_head_shared      -> class_embed.{0..n-1} (tied)
+  transformer/(obj_)key_head_shared/layer{j} -> (obj_)key_embed.{0..n-1}.layers.{j}
+  transformer/enc_out_cls_head     -> transformer.enc_out_class_embed
+  transformer/enc_out_(obj_)key_head/layer{j}
+                                   -> transformer.enc_out_(obj_)key_embed.layers.{j}
 
 Dense kernels (in, out) are transposed to torch's (out, in); convs go
 HWIO -> OIHW. A bfloat16 leaf (a `bf16_params` tree) is widened to float32
@@ -84,20 +101,44 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         sd[f"{dst}.running_mean"] = _t(node["mean"])
         sd[f"{dst}.running_var"] = _t(node["var"])
 
-    # backbone: torchvision ResNet-50 under the Joiner's slot 0
-    bb, body = p["backbone"], "backbone.0.body"
-    conv(f"{body}.conv1", bb["conv1"])
-    frozen_bn(f"{body}.bn1", bb["bn1"])
-    for name in sorted(k for k in bb if k.startswith("layer")):
-        li, bi = name[len("layer"):].split("_")
-        dst = f"{body}.layer{li}.{bi}"
-        for ci in (1, 2, 3):
-            conv(f"{dst}.conv{ci}", bb[name][f"conv{ci}"])
-            frozen_bn(f"{dst}.bn{ci}", bb[name][f"bn{ci}"])
-        if "down_conv" in bb[name]:
-            conv(f"{dst}.downsample.0", bb[name]["down_conv"])
-            frozen_bn(f"{dst}.downsample.1", bb[name]["down_bn"])
+    def resnet(bb, body="backbone.0.body"):
+        conv(f"{body}.conv1", bb["conv1"])
+        frozen_bn(f"{body}.bn1", bb["bn1"])
+        for name in sorted(k for k in bb if k.startswith("layer")):
+            li, bi = name[len("layer"):].split("_")
+            dst = f"{body}.layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                conv(f"{dst}.conv{ci}", bb[name][f"conv{ci}"])
+                frozen_bn(f"{dst}.bn{ci}", bb[name][f"bn{ci}"])
+            if "down_conv" in bb[name]:
+                conv(f"{dst}.downsample.0", bb[name]["down_conv"])
+                frozen_bn(f"{dst}.downsample.1", bb[name]["down_bn"])
 
+    def convnext(bb, body="backbone.0"):
+        conv(f"{body}.downsample_layers.0.0", bb["stem_conv"])
+        norm(f"{body}.downsample_layers.0.1", bb["stem_norm"])
+        for name in (k for k in bb if k.startswith("down") and k.endswith("_norm")):
+            i = name[len("down"):-len("_norm")]
+            norm(f"{body}.downsample_layers.{i}.0", bb[f"down{i}_norm"])
+            conv(f"{body}.downsample_layers.{i}.1", bb[f"down{i}_conv"])
+        for name in (k for k in bb if k.startswith("stage")):
+            i, j = name[len("stage"):].split("_block")
+            src, dst = bb[name], f"{body}.stages.{i}.{j}"
+            conv(f"{dst}.dwconv", src["dwconv"])
+            norm(f"{dst}.norm", src["norm"])
+            linear(f"{dst}.pwconv1", src["pwconv1"])
+            linear(f"{dst}.pwconv2", src["pwconv2"])
+            sd[f"{dst}.gamma"] = _t(src["gamma"])
+        for name in (k for k in bb if k.startswith("out_norm")):
+            norm(f"{body}.norm{name[len('out_norm'):]}", bb[name])
+
+    bb = p["backbone"]
+    if "stem_conv" in bb:  # the ConvNeXt in the Joiner's slot 0
+        convnext(bb)
+    else:  # torchvision ResNet-50 under the Joiner's slot 0
+        resnet(bb)
+    if "label_enc" in p:
+        sd["label_enc.weight"] = _t(p["label_enc"]["embedding"])
     if "pos_embed" in p:
         for name in ("row_embed", "col_embed"):
             sd[f"backbone.1.{name}.weight"] = _t(p["pos_embed"][name])
@@ -138,9 +179,24 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             linear(f"{dst}.{lin}", src[lin])
 
     two_stage = "enc_output" in t
+    dino = "tgt_embed" in t
     if two_stage:
         linear("transformer.enc_output", t["enc_output"])
         norm("transformer.enc_output_norm", t["enc_output_norm"])
+    if dino:
+        tr = "transformer"
+        sd[f"{tr}.tgt_embed.weight"] = _t(t["tgt_embed"])
+        sd[f"{tr}.two_stage_wh_embedding.weight"] = _t(
+            np.asarray(t["two_stage_learn_xy"]).reshape(1, -1))
+        for j in range(2):
+            linear(f"{tr}.decoder.ref_point_head.layers.{j}", t["ref_point_head"][f"layer{j}"])
+        norm(f"{tr}.decoder.norm", t["decoder_norm"])
+        linear(f"{tr}.enc_out_class_embed", t["enc_out_cls_head"])
+        for src, dst in (("enc_out_key_head", "enc_out_key_embed"),
+                         ("enc_out_obj_key_head", "enc_out_obj_key_embed")):
+            for j in range(3):
+                linear(f"{tr}.{dst}.layers.{j}", t[src][f"layer{j}"])
+    elif two_stage:
         for j, name in ((0, "pos_trans1"), (2, "pos_trans2"), (4, "pos_trans3")):
             linear(f"transformer.pos_trans.{j}", t[name])
         norm("transformer.pos_trans_norm", t["pos_trans_norm"])
@@ -149,13 +205,19 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     else:
         linear("transformer.reference_points", t["reference_points"])
 
-    num_pred = n_dec + 1 if two_stage else n_dec  # two-stage: the encoder's head
+    # two-stage: the extra head is the encoder's (the DINO variant's are the
+    # transformer's own); DINO's decoder heads are tied
+    num_pred = n_dec + 1 if two_stage and not dino else n_dec
     for i in range(num_pred):
-        linear(f"cls_embed.{i}", t.get(f"cls_head{i}", t.get("cls_head_shared")))
+        if dino:
+            linear(f"class_embed.{i}", t["cls_head_shared"])
+        else:
+            linear(f"cls_embed.{i}", t.get(f"cls_head{i}", t.get("cls_head_shared")))
         for src, dst in (("key_head", "key_embed"), ("obj_key_head", "obj_key_embed")):
-            if f"{src}{i}" in t:
+            src = f"{src}_shared" if dino else f"{src}{i}"
+            if src in t:
                 for j in range(3):
-                    linear(f"{dst}.{i}.layers.{j}", t[f"{src}{i}"][f"layer{j}"])
+                    linear(f"{dst}.{i}.layers.{j}", t[src][f"layer{j}"])
     for flax_name, torch_name in _SHARED_HEADS:
         for i in range(num_pred):
             linear(f"{torch_name}.{i}", p[flax_name])
