@@ -158,10 +158,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      train steps with the same launch checks, and their peak device
      memory; then the CLI with `--modelname dino` on phase 13's root: an
      epoch of 2 steps and its eval, and `--eval --resume` of its checkpoint,
-     whose scores must equal the in-process eval's.
+     whose scores must equal the in-process eval's;
+  20. the temporal variant at full width: arctic_sf with the lstm head on
+     windows of 32 frames with every frame's targets (`split_window`) and
+     with the vivit head on the centre frames' targets (`center_index`),
+     float32 and bf16, one `TempoTrainDataset` window a step from a
+     synthetic root of 54 frames: a train pass against the plain MSDA
+     versions (every loss, the `/temporal` terms included, within 1e-4;
+     gradients within 1e-3 / 5e-2 of each tensor's max), 3 train steps
+     (12 + 12 staged launches a step, no other kernel; the steady step ms,
+     frames/s and peak memory, remat off and for lstm on: 24 + 12), 2
+     serving windows of the fp32 lstm model (12 a batch, held end to end
+     against the plain run; its metrics from the refined parameters) and a
+     profiled step; 3 SmoothNet steps (`ArcticSmoother(32)` behind a frozen
+     fp32 arctic_sf: 12 forward and no backward launches a step, the base
+     bit-identical, the smoother moved); then the CLI on phase 13's root
+     with window 3: `--method arctic_lstm --temporal_head lstm` (an epoch of
+     2 steps and its eval, `--eval --resume` with equal scores),
+     `--train_smoothnet` (2 steps) and `--smooth_resume` of its smoother.
   Phases 3 and 3b also time the forward and backward kernels on one
-  enc_lite call (Lq 261, S 1045, B=16, float32) and on one DINO decoder
-  call (Lq 498, float32 and bf16) beside their bounds.
+  enc_lite call (Lq 261, S 1045, B=16, float32), on one DINO decoder
+  call (Lq 498, float32 and bf16) and on one encoder call of the temporal
+  train step (B=32 frames, float32) beside their bounds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -172,6 +190,7 @@ gives every ported kernel's numbers as JSON.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -212,6 +231,8 @@ LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
 ENC_LITE_LQ = sum(h * w for h, w in LEVELS[1:])
 # the DINO train step's decoder call: 300 matching + 198 CDN queries (dn_number 100)
 DN_LQ = 300 + CdnConfig(100).pad_size
+# the temporal variant's window: a train step runs the model on its 32 frames
+TEMPORAL_WINDOW = 32
 # relative to max|value| (forward) or to each gradient's max (backward: the
 # float32 dvalue is summed by atomics in no fixed order)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3, torch.float64: 1e-12}
@@ -347,6 +368,7 @@ def kernel_phase():
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
         ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
         ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
+        ("temporal encoder fp32", dict(enc, B=TEMPORAL_WINDOW), (0.0, 1.0), torch.float32, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -382,7 +404,8 @@ def kernel_phase():
                                      f"({name})")
             if dtype == torch.float32:
                 max_err[kind] = max(max_err[kind], err)
-        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder",
+                                             "temporal")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -426,6 +449,7 @@ def backward_kernel_phase():
         ("decoder bf16", dec, (-1.0, 1.0), torch.bfloat16, True),
         ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
         ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
+        ("temporal encoder fp32", dict(enc, B=TEMPORAL_WINDOW), (0.0, 1.0), torch.float32, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -468,7 +492,8 @@ def backward_kernel_phase():
                 + f"; tol {TOL[dtype]:.0e} ok"
                 + (f" (plan: levels {plan.groups}, {plan.smem} B of shared memory)"
                    if kind == "staged" else ""))
-        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder")):
+        if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder",
+                                             "temporal")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -1015,7 +1040,7 @@ SERVE_FAC = staged({"msda_fac_fwd": MSDA_PER_FORWARD})
 TRAIN_FAC = staged({"msda_fac_fwd": MSDA_PER_FORWARD, "msda_fac_bwd": MSDA_PER_FORWARD})
 
 
-def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE):
+def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE, frames=BATCH):
     step = engine.make_eval_step(model, *world, img_res=IMG_RES)
     reset_counts()
     rows, times = [], []
@@ -1028,8 +1053,8 @@ def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE):
         rows.append({k: v.cpu().numpy() for k, v in r.items()})
     counts = read_counts()
     for i, t in enumerate(times):
-        log(f"[serve] {tag} batch {i}: {t * 1e3:.3f} ms, {BATCH / t:.1f} frames/s "
-            f"(B={BATCH}, {tag}, {card})")
+        log(f"[serve] {tag} batch {i}: {t * 1e3:.3f} ms, {frames / t:.1f} frames/s "
+            f"(B={frames}, {tag}, {card})")
     want = expected(per_batch, len(batches))
     if counts != want:
         raise AssertionError(f"{tag} serving: MSDA kernel launches {counts}, expected {want}")
@@ -1037,7 +1062,7 @@ def main_path_phase(model, world, batches, card, tag="fp32", per_batch=SERVE):
     for i, (r, batch) in enumerate(zip(rows, batches)):
         valid = batch["is_valid"] > 0
         for k, v in r.items():
-            if v.shape != (BATCH,):
+            if v.shape != (frames,):
                 raise AssertionError(f"metric {k} has shape {v.shape}")
             # CDev is NaN by definition for a frame whose GT has no contact
             finite = np.isfinite(v[valid]) | (np.isnan(v[valid]) if k == "cdev/ho" else False)
@@ -1196,7 +1221,7 @@ def profile_phase(model, world, batch):
 # ------------------------------------------------------------ 7-9. training
 
 
-def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
+def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32", require=()):
     """One loss and backward in train mode (dropout and feature mask on)
     from the same weights and generator seed, with the kernels and with the
     plain MSDA versions. Loss terms within 1e-4 relative; each gradient
@@ -1205,7 +1230,8 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
     are not bit-repeatable either; in bf16 a last-bit change of a dvalue
     sum moves its bf16 rounding a whole bf16 step). A model with CDN
     queries takes one draw of them (`dn_meta`), injected into both runs,
-    and its `*_dn` loss terms must be there."""
+    and its `*_dn` loss terms must be there, as must the terms `require`
+    names."""
     loss_fn = engine.make_loss_fn(model, *world, img_res=IMG_RES)
     tb = engine.to_device(batch, "cuda", engine.TRAIN_KEYS)
     dn_meta = None
@@ -1239,6 +1265,8 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
     if dn_meta is not None and not {"loss_ce_dn", "loss_hand_keypoint_dn",
                                     "loss_obj_keypoint_dn"} <= set(ld_p):
         raise AssertionError(f"{tag}: no dn loss terms in {sorted(ld_p)}")
+    if not set(require) <= set(ld_p):
+        raise AssertionError(f"{tag}: loss terms {sorted(set(require) - set(ld_p))} missing")
     worst, worst_name = 0.0, ""
     for n, gp in g_p.items():
         rel = float((g_k[n] - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
@@ -1250,7 +1278,8 @@ def train_ab_phase(model, world, batch, grad_tol=1e-3, tag="fp32"):
         raise AssertionError("kernel and plain train passes disagree on gradients")
 
 
-def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN, sgd=False):
+def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN, sgd=False,
+                frames=BATCH):
     """The training path: make_fused_train_step with the CLI's defaults
     (AdamW, or SGD with `sgd`; bfloat16 parameters take the stochastic-
     rounding optimizer, and must stay bfloat16 and finite)."""
@@ -1278,7 +1307,7 @@ def train_phase(model, world, batches, card, tag="fp32", per_step=TRAIN, sgd=Fal
         moved = {g: any(not torch.equal(p, old[n]) for n, p in params.items() if labels[n] == g)
                  for g in set(labels.values())}
         delta = {n: after[n] - before[n] for n in KERNELS}
-        log(f"[train] {tag} step {i}: {dt * 1e3:.3f} ms, {BATCH / dt:.1f} frames/s (B={BATCH}, "
+        log(f"[train] {tag} step {i}: {dt * 1e3:.3f} ms, {frames / dt:.1f} frames/s (B={frames}, "
             f"{tag}, {card}); total {vals['total']:.6g}, grad_norm {vals['grad_norm']:.6g}, "
             f"launches {json.dumps({n: f'+{d}' for n, d in delta.items() if d})}, "
             f"groups moved {moved}")
@@ -1821,7 +1850,8 @@ def bench_phase(card):
     """Phase 17: `python -m uvhand_tpu_torch.bench` with UVHAND_BENCH_SCAN =
     BENCH_SCAN: its first line is the bf16 train headline, finite and > 0;
     every mode's line a rate or a named skip, none an error; launches 12
-    (+ 12 backward) a call of each mode, its warm-up included, all staged.
+    (+ 12 backward) a call of each mode, its warm-up included (the window-32
+    train step, under remat, 24 + 12), all staged.
     Logs its lines as the bench printed them, beside the card."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1836,11 +1866,13 @@ def bench_phase(card):
     timed = [r for r in rows if "value" in r]
     bad = [r for r in rows if not ("value" in r and np.isfinite(r["value"]) and r["value"] > 0
                                    or str(r.get("skipped", "")).startswith("not ported"))]
-    if bad or len(timed) != 6:
-        raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 6")
+    if bad or len(timed) != 7:
+        raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 7")
     calls = 1 + BENCH_SCAN  # a mode's calls: its warm-up and the timed ones
-    want = expected(staged({"msda_fwd": 6 * MSDA_PER_FORWARD * calls,
-                            "msda_bwd": 3 * MSDA_PER_FORWARD * calls}))
+    # 3 train and 3 serving modes, 12 (+ 12) a call, and the window-32 train
+    # step under remat, 24 + 12
+    want = expected(staged({"msda_fwd": 8 * MSDA_PER_FORWARD * calls,
+                            "msda_bwd": 4 * MSDA_PER_FORWARD * calls}))
     if counts != want:
         raise AssertionError(f"[bench] launches {counts}, expected {want}")
     for line in lines:
@@ -1975,6 +2007,221 @@ def dino_cli_phase(card):
     return runs
 
 
+# ------------------------------------------------------------ 20. temporal
+
+#: phase 20's train configurations: (tag, compute type, temporal head,
+#: split_window, gradient tolerance of the kernel-against-plain pass)
+TEMPORAL = (("fp32 lstm split", torch.float32, "lstm", True, 1e-3),
+            ("fp32 vivit centre", torch.float32, "vivit", False, 1e-3),
+            ("bf16 lstm split", torch.bfloat16, "lstm", True, 5e-2),
+            ("bf16 vivit centre", torch.bfloat16, "vivit", False, 5e-2))
+#: the frames the train windows are centred on: the A/B pass's, then a step's each
+TEMPORAL_CENTRES = (21, 16, 26, 36)
+TEMPORAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "temporal_smoke")
+#: a loss term of each kind that the temporal head's refined parameters add
+TEMPORAL_TERMS = ("loss/mano/pose/r/temporal", "loss/cd/temporal", "loss/object/rot/temporal")
+
+
+def temporal_windows():
+    """Window batches of TEMPORAL_WINDOW frames through the data path, from a
+    synthetic ARCTIC root of TEMPORAL_WINDOW + 22 frames (one sequence, one
+    view, the object GT posed from the synthetic bank): for each frame of
+    TEMPORAL_CENTRES the `TempoTrainDataset` window centred on it (clipped to
+    [10, n - 11]) with every frame's targets ("split") and with the centre
+    frame's ("centre", `center_index`), and the two `WindowDataset` windows
+    ("serve", the second padded with its last frame). Windows are decoded in
+    a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shutil.rmtree(TEMPORAL_DIR, ignore_errors=True)
+    root = os.path.join(TEMPORAL_DIR, "arctic")
+    bank = objects.synthetic_object_bank(2, device="cpu")
+    arctic.make_synthetic_root(root, num_seqs=1, frames=TEMPORAL_WINDOW + 22, views=1,
+                               seed=SEED, obj_bank=bank)
+    ds = arctic.ArcticDataset(root, "p1", "train", kp3d_cano=bank.kp_bottom.numpy())
+    wds = arctic.WindowDataset(ds, TEMPORAL_WINDOW)
+    jobs = {("serve", i): (wds, i, arctic.collate_windows) for i in range(len(wds))}
+    for split in (True, False):
+        tds = arctic.TempoTrainDataset(ds, TEMPORAL_WINDOW, split_window=split)
+        collate = functools.partial(arctic.collate_tempo_train, split_window=split)
+        for i, centre in enumerate(TEMPORAL_CENTRES):
+            jobs[("split" if split else "centre", i)] = (tds, centre, collate)
+    with ThreadPoolExecutor(8) as pool:
+        done = {key: pool.submit(lambda d, i, c: c([d[i]]), *job) for key, job in jobs.items()}
+        out = {}
+        for (name, i), f in sorted(done.items()):
+            out.setdefault(name, []).append(f.result())
+    return out
+
+
+def temporal_phase(world, card):
+    """Phase 20: arctic_sf at full width with each temporal head over one
+    window of TEMPORAL_WINDOW frames a batch (`temporal_windows`), fp32 and
+    bf16 (`TEMPORAL`): a train pass with the kernels against the plain MSDA
+    versions (every loss, the `/temporal` terms included, within 1e-4;
+    gradients within 1e-3 / 5e-2 of each tensor's max), 3 steps of
+    `make_fused_train_step` (12 + 12 staged launches a step, no other
+    kernel), the steady step ms and frames/s, the peak device memory with
+    remat off and (lstm) on (24 + 12 a remat step); the fp32 lstm model
+    serves the 2 `WindowDataset` windows (12 staged launches a batch, held
+    end to end against the plain run) and a train step of it is profiled;
+    then SmoothNet: 3 `make_smoothnet_train_step` steps of an
+    `ArcticSmoother(TEMPORAL_WINDOW)` behind a frozen fp32 arctic_sf (12
+    forward launches a step, no backward; the base bit-identical after, the
+    smoother moved). Returns {path: launches}."""
+    from uvhand_tpu_torch.train import smoothnet_driver
+
+    t0 = time.perf_counter()
+    data = temporal_windows()
+    log(f"[temporal] {len(data['split']) + len(data['centre']) + len(data['serve'])} windows of "
+        f"{TEMPORAL_WINDOW} frames decoded in {time.perf_counter() - t0:.2f} s")
+    T = TEMPORAL_WINDOW
+    counts = {}
+    for tag, dtype, kind, split, grad_tol in TEMPORAL:
+        batches = data["split" if split else "centre"]
+        model = build_model(compute_dtype=dtype, temporal_head=kind, temporal_window=T)
+        train_ab_phase(model, world, batches[0], grad_tol=grad_tol, tag=f"temporal {tag}",
+                       require=TEMPORAL_TERMS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts[f"train_temporal_{tag.replace(' ', '_')}"] = train_phase(
+            model, world, batches[1:], card, f"temporal {tag}", frames=T)
+        peak = torch.cuda.max_memory_allocated()
+        steady = float(np.median(times[1:]))
+        log(f"[temporal] {tag}: steady train step {steady * 1e3:.3f} ms ({T / steady:.1f} "
+            f"frames/s, one window of {T} frames), peak device memory {peak / 2**30:.3f} GiB "
+            f"allocated over its steps, remat off ({card})")
+        if tag == "fp32 lstm split":
+            rows, _, counts["serve_temporal_fp32_lstm"] = main_path_phase(
+                model, world, data["serve"], card, f"temporal {tag}", frames=T)
+            e2e_phase(model, world, data["serve"][0], rows[0], f"temporal {tag}")
+            step = engine.make_fused_train_step(
+                model, *world, create_optimizer(model), img_res=IMG_RES,
+                generator=torch.Generator(device="cuda").manual_seed(SEED))
+            profile_line(f"temporal {tag} train step", lambda: step(batches[1]))
+            del step
+        del model
+        torch.cuda.empty_cache()
+        if kind == "lstm":
+            model = build_model(compute_dtype=dtype, temporal_head=kind, temporal_window=T,
+                                remat=True)
+            step = engine.make_fused_train_step(
+                model, *world, create_optimizer(model), img_res=IMG_RES,
+                generator=torch.Generator(device="cuda").manual_seed(SEED))
+            step(batches[1])  # warm-up: the optimizer's state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t1 = time.perf_counter()
+            step(batches[2])
+            torch.cuda.synchronize()
+            dt, peak = time.perf_counter() - t1, torch.cuda.max_memory_allocated()
+            remat = read_counts()
+            want = expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD,
+                                    "msda_bwd": MSDA_PER_FORWARD}))
+            if remat != want:
+                raise AssertionError(f"[temporal] {tag} remat step: launches {remat}, "
+                                     f"expected {want}")
+            log(f"[temporal] {tag} remat on: a step {dt * 1e3:.3f} ms, peak device memory "
+                f"{peak / 2**30:.3f} GiB allocated; launches "
+                f"{json.dumps({k: v for k, v in remat.items() if v})} ({card})")
+            del model, step
+            torch.cuda.empty_cache()
+
+    base = build_model()
+    smoother, opt = smoothnet_driver.create_smoother_state(
+        T, lr=2e-4, generator=torch.Generator().manual_seed(SEED), device="cuda")
+    step = smoothnet_driver.make_smoothnet_train_step(
+        base, smoother, opt, *world, img_res=IMG_RES,
+        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    frozen = {k: v.clone() for k, v in base.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in smoother.named_parameters()}
+    reset_counts()
+    for i in range(3):
+        launched_before = read_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ld = step(data["serve"][0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        delta = {k: v - launched_before[k] for k, v in read_counts().items()}
+        vals = {k: float(v) for k, v in ld.items()}
+        log(f"[smoothnet] step {i}: {dt * 1e3:.3f} ms ({T / dt:.1f} frames/s, one window of {T} "
+            f"frames, the base frozen, {card}); losses {json.dumps(vals)}")
+        if delta != expected(SERVE) or not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"[smoothnet] step {i}: launches {delta}, losses {vals}")
+    counts["smoothnet"] = read_counts()
+    moved = [n for n, p in smoother.named_parameters() if not torch.equal(p, before[n])]
+    if any(not torch.equal(v, frozen[k]) for k, v in base.state_dict().items()):
+        raise AssertionError("[smoothnet] the frozen base model moved")
+    if len(moved) != len(before):
+        raise AssertionError(f"[smoothnet] {len(before) - len(moved)} smoother tensors did not "
+                             f"move")
+    log(f"[smoothnet] ArcticSmoother({T}): {sum(p.numel() for p in before.values()) / 1e6:.2f}M "
+        f"parameters, every tensor moved; the base's {len(frozen)} tensors bit-identical; "
+        f"launches {json.dumps({k: v for k, v in counts['smoothnet'].items() if v})}")
+    del base, smoother, opt, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def temporal_cli_phase(card):
+    """The temporal routes of the CLI on phase 13's root, window 3, full
+    width: `--method arctic_lstm --temporal_head lstm`, an epoch of 2 steps
+    (5 windows of 3 frames each, the centre frames' targets) and its eval (2
+    batches), then `--eval --resume` of its checkpoint (the sequence pass
+    included), whose scores must equal the in-process eval's;
+    `--train_smoothnet` behind phase 13's fp32 checkpoint, an epoch of 2
+    steps, then `--smooth_resume` of its smoother. 12 staged forward
+    launches a batch or smoothnet step, 12 + 12 a train step, no other
+    kernel. Returns the launches of each run."""
+    data_dir = os.path.join(CLI_DIR, "data")
+    out, sm = os.path.join(CLI_DIR, "lstm"), os.path.join(CLI_DIR, "smoothnet")
+    parse = cli.get_args_parser().parse_args
+    seq_batches = CLI_SEQS * CLI_VIEWS * -(-CLI_FRAMES // BATCH)
+    head = ("--method", "arctic_lstm", "--window_size", "3", "--temporal_head", "lstm")
+    smooth = ("--train_smoothnet", "--window_size", "3", "--resume",
+              os.path.join(CLI_DIR, "out", "0"))
+    runs, res = {}, {}
+    for tag, argv, want in (
+            ("lstm train epoch", cli_argv(data_dir, out, "--num_debug", "2", *head),
+             expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}),
+                      2)),
+            ("lstm eval --resume", cli_argv(data_dir, out + "_eval", "--num_debug", "2", *head,
+                                            "--eval", "--resume", os.path.join(out, "0")),
+             expected(SERVE, 2 + seq_batches)),
+            ("smoothnet epoch", cli_argv(data_dir, sm, "--num_debug", "2", *smooth),
+             expected(SERVE, 2)),
+            ("smoothnet --smooth_resume", cli_argv(data_dir, sm + "_resumed", "--num_debug", "2",
+                                                   *smooth, "--smooth_resume",
+                                                   os.path.join(sm, "0")),
+             expected(SERVE, 2))):
+        reset_counts()
+        t0 = time.perf_counter()
+        res[tag] = cli.main(parse(argv))
+        torch.cuda.synchronize()
+        runs[tag] = read_counts()
+        if runs[tag] != want:
+            raise AssertionError(f"[temporal-cli] {tag}: launches {runs[tag]}, expected {want}")
+        log(f"[temporal-cli] {tag}: wall clock {time.perf_counter() - t0:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in runs[tag].items() if v})} ({card})")
+    epoch = res["lstm train epoch"]["epochs"][0]
+    resumed = res["lstm eval --resume"]["scores"][0]
+    for k, v in epoch["scores"].items():
+        if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
+            raise AssertionError(f"[temporal-cli] {k}: resumed eval {resumed[k]} != "
+                                 f"in-process {v}")
+    smoothed = [res[t]["smoothnet"][0] for t in ("smoothnet epoch", "smoothnet --smooth_resume")]
+    bad = sorted(k for k, v in {**epoch["stats"], **resumed}.items() if not np.isfinite(v))
+    if bad or any(e["steps"] != 2 or not np.isfinite(e["losses"]["total"]) for e in smoothed):
+        raise AssertionError(f"[temporal-cli] not finite: {bad}, smoothnet {smoothed}")
+    log(f"[temporal-cli] lstm losses {json.dumps(epoch['stats'])}; the resumed eval's scores "
+        f"equal the in-process eval's: {json.dumps(resumed)}; smoothnet losses "
+        f"{json.dumps([e['losses'] for e in smoothed])}")
+    return runs
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2085,6 +2332,13 @@ def main() -> int:
     convnext_counts = convnext_phase(world, batches, train_batches, card)
     dino_cli_runs = dino_cli_phase(card)
 
+    # 20. the temporal variant: window-32 training and serving, SmoothNet, the CLI
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    temporal_counts = temporal_phase(world, card)
+    temporal_cli_runs = temporal_cli_phase(card)
+    log(f"[temporal] phase 20 took {time.perf_counter() - t0:.2f} s of wall clock")
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -2106,7 +2360,8 @@ def main() -> int:
         "of them); launches_by_path gives every path's count (phase 14's options and the CLI's "
         "option runs included); *_enc_lite_call: one float32 call of enc_lite's low-resolution-"
         "only layers (Lq 261 against S 1045, B=16); *_dn_decoder_call(_bf16): one decoder call "
-        "of the DINO train step (Lq 498: 300 + 198 CDN queries, B=16)")
+        "of the DINO train step (Lq 498: 300 + 198 CDN queries, B=16); *_temporal_call: one "
+        "float32 encoder call of the temporal train step (its 32 window frames, Lq = S = 1045)")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -2143,11 +2398,15 @@ def main() -> int:
                 "serve_dino_convnext": convnext_counts[0][name],
                 "train_dino_convnext": convnext_counts[1][name],
                 "cli_dino_train": dino_cli_runs["dino train epoch"][name],
-                "cli_dino_eval": dino_cli_runs["dino eval --resume"][name]}
+                "cli_dino_eval": dino_cli_runs["dino eval --resume"][name],
+                **{path: n[name] for path, n in temporal_counts.items()},
+                **{f"cli_temporal_{tag.replace(' ', '_')}": n[name]
+                   for tag, n in temporal_cli_runs.items()}}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
         lite = timed_["enc_lite fp32"][kind]  # one enc_lite low-resolution-only call
+        window = timed_["temporal encoder fp32"][kind]  # one encoder call of a window step
         dn = {dt: timed_[f"dn decoder {dt}"][kind] for dt in ("fp32", "bf16")}
         return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
                 "replaces": replaces, "launches": launches, "launches_by_path": by_path(
@@ -2158,7 +2417,9 @@ def main() -> int:
                 **{f"{k}_enc_lite_call": lite[k]
                    for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
                 **{f"{k}_dn_decoder_call{'' if dt == 'fp32' else '_bf16'}": dn[dt][k]
-                   for dt in dn for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+                   for dt in dn for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                **{f"{k}_temporal_call": window[k]
+                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
 
     def fac_row(op, kind, key, launches, replaces):
         fp32 = per_call(ftimed[key], "fp32", kind)

@@ -2,8 +2,12 @@
 
 A tiny model (1+2 layers, d 64, FFN 128, 4 heads, 12 queries, 64x64) on a
 batch of 2, 2 steps or batches after the warm-up one: the first line is
-the bf16 train headline with the root bench's keys, every line is JSON, and
-the not-ported modes name their ROADMAP items and time nothing. The DINO
+the bf16 train headline with the root bench's keys, every line is JSON, the
+window-32 temporal line times one window of 32 frames (bf16, remat), and
+the not-ported Swin mode names its ROADMAP item and times nothing. The
+window knobs (UVHAND_BENCH_WINDOW, _SPLIT, _TEMPORAL) train on window
+batches with the temporal head and skip serving where the batch keeps only
+its centre frames' cameras. The DINO
 model and the ConvNeXt backbone knobs (a shrunken ConvNeXt here) run the
 DINO train step, which draws CDN queries every step. Without a
 card and without `--device cpu` it raises. The numbers are CPU rates, not
@@ -27,7 +31,7 @@ def bench_env(monkeypatch):
     monkeypatch.setenv("UVHAND_BENCH_BATCH", "2")
     monkeypatch.setenv("UVHAND_BENCH_SCAN", "2")
     for knob in ("DTYPE", "ONLY", "INFER", "LITE", "BUDGET_S", "ENC_LITE_HI", "MODEL",
-                 "BACKBONE"):
+                 "BACKBONE", "WINDOW", "SPLIT", "TEMPORAL"):
         monkeypatch.delenv(f"UVHAND_BENCH_{knob}", raising=False)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -53,11 +57,13 @@ def test_headline_first_then_every_mode(bench_env, capsys):
         "train_frames_per_sec_chip_window32", "train_frames_per_sec_chip_swin",
         "infer_frames_per_sec_chip_fp32"]
     by = {x["metric"]: x for x in lines}
-    for name in ("window32", "swin"):
-        row = by[f"train_frames_per_sec_chip_{name}"]
-        assert "value" not in row and row["skipped"].startswith("not ported: ROADMAP Queue 1 item")
+    swin = by["train_frames_per_sec_chip_swin"]
+    assert "value" not in swin and swin["skipped"].startswith("not ported: ROADMAP Queue 1 item")
+    w32 = by["train_frames_per_sec_chip_window32"]
+    assert (w32["batch"], w32["window"], w32["dtype"], w32["remat"]) == (32, 32, "bfloat16", True)
+    assert w32["split_window"] and w32["temporal_head"] == "none" and not head["remat"]
     timed = [x for x in lines if "value" in x]
-    assert len(timed) == 6 and all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
+    assert len(timed) == 7 and all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
     assert by["infer_frames_per_sec_chip_enc_lite"]["batch"] == 8
     assert by["infer_frames_per_sec_chip_enc_lite"]["enc_lite_hi_every"] == 6
 
@@ -77,7 +83,7 @@ def test_knobs_and_the_budget(bench_env, capsys):
     assert lines[0]["metric"] == "train_frames_per_sec_chip"  # the headline ignores the budget
     assert {x["metric"]: x.get("skipped") for x in lines[1:]} == {
         "train_frames_per_sec_chip_fp32": "budget",
-        "train_frames_per_sec_chip_window32": "not ported: ROADMAP Queue 1 item 9 (temporal)",
+        "train_frames_per_sec_chip_window32": "budget",
         "train_frames_per_sec_chip_swin": "not ported: ROADMAP Queue 1 item 10 (Swin-L "
                                           "backbone)"}
 
@@ -102,12 +108,33 @@ def test_the_dino_and_convnext_knobs(bench_env, capsys):
     lines = run(capsys)
     timed = [x for x in lines if "value" in x]
     assert [x["metric"] for x in timed] == ["train_frames_per_sec_chip",
-                                            "train_frames_per_sec_chip_fp32"]
+                                            "train_frames_per_sec_chip_fp32",
+                                            "train_frames_per_sec_chip_window32"]
     assert all(x["model"] == "dino" and x["backbone"] == "convnext_xlarge_22k" for x in timed)
     assert all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
-    assert len(calls) == 2 * 3  # every train step (warm-up + 2) of both modes
+    assert len(calls) == 3 * 3  # every train step (warm-up + 2) of the three modes
     bench_env.setenv("UVHAND_BENCH_BACKBONE", "swin")
     assert run(capsys)[0]["skipped"] == "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"
+
+
+def test_the_window_knobs(bench_env, capsys):
+    """UVHAND_BENCH_WINDOW=2 with a batch of 4: 2 windows of 2 frames centred
+    on frames, the centre frames' targets (SPLIT=0) and the lstm head; the
+    serving lines skip (no camera of the other frames), and no window32
+    line runs beside a window batch."""
+    for knob, value in (("WINDOW", "2"), ("SPLIT", "0"), ("TEMPORAL", "lstm"), ("LITE", "0"),
+                        ("BATCH", "4")):
+        bench_env.setenv(f"UVHAND_BENCH_{knob}", value)
+    lines = run(capsys)
+    assert [x["metric"] for x in lines] == [
+        "train_frames_per_sec_chip", "train_frames_per_sec_chip_fp32",
+        "infer_frames_per_sec_chip", "train_frames_per_sec_chip_swin",
+        "infer_frames_per_sec_chip_fp32"]
+    for row in lines[:2]:
+        assert (row["batch"], row["window"], row["split_window"], row["temporal_head"],
+                row["remat"]) == (4, 2, False, "lstm", False)
+        assert math.isfinite(row["value"]) and row["value"] > 0
+    assert all("centre frames" in x["skipped"] for x in lines if x["metric"].startswith("infer"))
 
 
 def test_the_card_without_a_card_raises(bench_env, monkeypatch):

@@ -8,7 +8,11 @@
     tolerantly; `list_checkpoints` sorts by epoch; a resumed schedule
     continues at its step's learning rate;
   - every option the port does not run exits with a message naming its
-    ROADMAP item (Swin-L still does); the DINO variant, `--use_dn` and
+    ROADMAP item (Swin-L still does); the temporal routes run: `--method
+    arctic_lstm` with each `--temporal_head` trains, evaluates and resumes,
+    `--train_smoothnet` writes the smoother and `--smooth_resume` resumes
+    it apart from the base model, and a temporal head without windows exits
+    with the JAX CLI's message, as the JAX CLI does; the DINO variant, `--use_dn` and
     the ConvNeXt backbone are taken; `--onecyclelr` schedules over 12
     epochs for dino and 32 otherwise; `-c configs/DINO/DINO_4scale.py`
     adds only the keys the flags lack; `--device cuda` (or the default)
@@ -43,6 +47,7 @@ from uvhand_tpu_torch.cli.main import check_ported, get_args_parser, main, onecy
 from uvhand_tpu_torch.data import arctic
 from uvhand_tpu_torch.geometry import objects
 from uvhand_tpu_torch.models.detr import UVHandDETR
+from uvhand_tpu_torch.models.temporal import smoothnet
 from uvhand_tpu_torch.train import checkpoint as ckpt
 from uvhand_tpu_torch.train.state import (create_optimizer, onecycle_schedule, scheduled,
                                           set_schedule_step)
@@ -170,8 +175,7 @@ def test_a_resumed_schedule_continues_at_its_step():
 
 
 UNPORTED = {
-    "arctic_lstm": ["--method", "arctic_lstm"], "temporal_head": ["--temporal_head", "lstm"],
-    "train_smoothnet": ["--train_smoothnet"], "extract": ["--extract"],
+    "extract": ["--extract"],
     "extraction_mode": ["--extraction_mode", "submit_pose"],
     "visualization": ["--visualization"], "native_loader": ["--native_loader", "fast"],
     "feature_type": ["--feature_type", "local_fm"],
@@ -361,6 +365,93 @@ def test_dino_trains_a_debug_step_and_its_checkpoint_evaluates(backbone, small_r
         str(out / "0")]))
     for k, v in epoch["scores"].items():
         assert ev["scores"][0][k] == v or (np.isnan(v) and np.isnan(ev["scores"][0][k])), k
+
+
+@pytest.mark.parametrize("head,split", [("lstm", []), ("vivit", ["--split_window"])])
+def test_arctic_lstm_trains_each_temporal_head_and_resumes(head, split, small_root, tmp_path):
+    """`--method arctic_lstm --window_size 3 --temporal_head <head>` trains a
+    `--debug` step on windows centred on frames (the centre frames' targets,
+    or every frame's with `--split_window`), its loss holding the
+    `/temporal` terms through the total, and evaluates; its checkpoint,
+    which holds the head, resumes into `--eval` with the same scores."""
+    argv = small_root + ["--two_stage", "--with_box_refine", "--method", "arctic_lstm",
+                         "--window_size", "3", "--temporal_head", head, *split]
+    out = tmp_path / "out"
+    res = main(get_args_parser().parse_args(argv + ["--output_dir", str(out), "--device",
+                                                    "cpu"]))
+    epoch = res["epochs"][0]
+    assert np.isfinite(epoch["stats"]["loss"]) and epoch["stats"]["grad_norm"] > 0
+    saved = torch.load(out / "0" / "checkpoint.pth", weights_only=False)["model"]
+    block = "temporal_param_head.ta_pose_l." + ("bilstm.lstm.weight_hh_l0_reverse"
+                                                 if head == "lstm" else "temporal_pos")
+    assert block in saved
+    ev = main(get_args_parser().parse_args(argv + [
+        "--output_dir", str(tmp_path / "ev"), "--device", "cpu", "--eval", "--resume",
+        str(out / "0")]))
+    for k, v in epoch["scores"].items():
+        assert ev["scores"][0][k] == v or (np.isnan(v) and np.isnan(ev["scores"][0][k])), k
+
+
+def test_train_smoothnet_writes_the_smoother_and_resumes_it(small_root, tmp_path):
+    """`--train_smoothnet --window_size 3` trains the smoother a `--debug`
+    step behind the frozen base (resumed from `--resume`) and writes it with
+    its optimizer each epoch; `--smooth_resume` of that checkpoint starts
+    from those weights and that optimizer state."""
+    base = small_root + ["--two_stage", "--with_box_refine"]
+    main(get_args_parser().parse_args(base + ["--output_dir", str(tmp_path / "base"),
+                                              "--device", "cpu"]))
+    argv = base + ["--train_smoothnet", "--window_size", "3", "--device", "cpu", "--resume",
+                   str(tmp_path / "base" / "0")]
+    res = main(get_args_parser().parse_args(argv + ["--output_dir", str(tmp_path / "sm")]))
+    (epoch,) = res["smoothnet"]
+    assert epoch["steps"] == 1 and np.isfinite(epoch["losses"]["total"])
+    assert {"loss/cd", "acc/h", "acc/o", "total"} == set(epoch["losses"])
+    saved = torch.load(tmp_path / "sm" / "0" / "checkpoint.pth", weights_only=False)
+    assert sorted(saved["model"]) == sorted(
+        smoothnet.ArcticSmoother(3).state_dict()) and saved["step"] == 1
+    assert saved["optimizer"]["state"]  # AdamW's moments after one step
+    loaded = []
+    real_load = ckpt.load_checkpoint
+
+    def load(path, model, *args, **kwargs):
+        loaded.append((path, type(model).__name__, real_load(path, model, *args, **kwargs)))
+        return loaded[-1][2]
+
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(ckpt, "load_checkpoint", load)
+    try:
+        res = main(get_args_parser().parse_args(argv + [
+            "--output_dir", str(tmp_path / "sm2"), "--smooth_resume", str(tmp_path / "sm" / "0")]))
+    finally:
+        monkey.undo()
+    assert [(p, m) for p, m, _ in loaded] == [(str(tmp_path / "base" / "0"), "UVHandDETR"),
+                                              (str(tmp_path / "sm" / "0"), "ArcticSmoother")]
+    assert loaded[1][2]["optimizer_restored"]
+    assert np.isfinite(res["smoothnet"][0]["losses"]["total"])
+
+
+def test_train_smoothnet_over_processes_exits_naming_it(monkeypatch):
+    from uvhand_tpu_torch.cli.main import train_smoothnet
+    from uvhand_tpu_torch.train import mesh
+
+    monkeypatch.setattr(mesh, "active", lambda: True)
+    with pytest.raises(SystemExit, match="--train_smoothnet runs in one process"):
+        train_smoothnet(get_args_parser().parse_args(["--train_smoothnet"]), None, None, None,
+                        "cpu")
+
+
+@pytest.mark.parametrize("flags", [["--temporal_head", "lstm"],
+                                   ["--temporal_head", "vivit", "--method", "arctic_lstm"]],
+                         ids=["arctic_sf", "window_1"])
+def test_a_temporal_head_without_windows_exits_as_the_jax_cli(flags, small_root, tmp_path):
+    argv = small_root + ["--output_dir", str(tmp_path), "--two_stage", "--with_box_refine",
+                         *flags]
+    msg = (r"--temporal_head requires --method arctic_lstm and --window_size > 1 \(the head "
+           r"mixes over window frames\)")
+    with pytest.raises(SystemExit, match=msg):
+        main(get_args_parser().parse_args(argv + ["--device", "cpu"]))
+    with pytest.raises(SystemExit, match=msg):
+        jax_main(jax_parser().parse_args(argv))
 
 
 @pytest.mark.parametrize("model", ["single_stage", "bf16_params"])

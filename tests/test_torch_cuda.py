@@ -25,7 +25,10 @@ the same inputs; so does it on a float16 or float64 value, both forms
 float64 atomics, and float16 rounds them once). The DINO train step's
 decoder call (Lq 498: 300 matching + 198 CDN queries, B = 16) goes
 through the staged forward and backward kernels once each, the forward
-bit for bit in float32.
+bit for bit in float32. A temporal train step (a 2+2-layer model with each
+temporal head, a window batch with centre-frame targets) launches the
+staged kernels 4 + 4 times, and a SmoothNet step behind it, frozen, 4
+forward and no backward.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -973,3 +976,62 @@ def test_dn_decoder_call_through_the_staged_kernels(cuda, dtype, monkeypatch):
     grads = (v.grad, lo.grad, at.grad)
     for name, o, r in zip(("dvalue", "dloc", "dattn"), grads, ref_grads):
         assert_matches(name, o, r, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lstm", "vivit"])
+def test_temporal_train_and_smoothnet_steps_launch_the_staged_kernels(cuda, kind, tmp_path):
+    """A window batch (2 `TempoTrainDataset` windows of 4 frames, the centre
+    frames' targets) through `make_fused_train_step` of a 2+2-layer model
+    with the `kind` temporal head: 4 staged forward and 4 staged backward
+    launches, no general one, every loss finite and the `/temporal` terms
+    there; then one `make_smoothnet_train_step` step behind the same model,
+    frozen: 4 staged forward launches and no backward, the base unchanged,
+    the smoother moved."""
+    from functools import partial
+
+    from uvhand_tpu_torch import engine
+    from uvhand_tpu_torch.data import arctic
+    from uvhand_tpu_torch.geometry import mano, objects
+    from uvhand_tpu_torch.models.detr import UVHandDETR
+    from uvhand_tpu_torch.train import smoothnet_driver
+    from uvhand_tpu_torch.train.state import create_optimizer
+
+    bank = objects.synthetic_object_bank(2, device="cpu")
+    root = str(tmp_path / "arctic")
+    arctic.make_synthetic_root(root, num_seqs=1, frames=6, views=1, obj_bank=bank,
+                               image_hw=(150, 210))
+    ds = arctic.ArcticDataset(root, "p1", "train", kp3d_cano=bank.kp_bottom.numpy(), img_res=128)
+    tds = arctic.TempoTrainDataset(ds, 4, split_window=False)
+    batch = partial(arctic.collate_tempo_train, split_window=False)([tds[1], tds[4]])
+    wds = arctic.WindowDataset(ds, 4)
+    windows = arctic.collate_windows([wds[0], wds[1]])
+    world = (mano.synthetic_mano(0, True, device=cuda), mano.synthetic_mano(1, False, device=cuda),
+             objects.synthetic_object_bank(2, device=cuda))
+    model = UVHandDETR(num_queries=12, num_encoder_layers=2, num_decoder_layers=2, d_model=64,
+                       n_heads=4, dim_feedforward=128, temporal_head=kind, temporal_window=4,
+                       generator=torch.Generator().manual_seed(0), device=cuda)
+    counts = (msda_cuda.FWD_STAGED, msda_cuda.BWD_STAGED, msda_cuda.FWD_GENERAL,
+              msda_cuda.BWD_GENERAL)
+    step = engine.make_fused_train_step(model, *world, create_optimizer(model), img_res=128.0,
+                                        device=cuda)
+    before = [c.launches for c in counts]
+    ld = step(batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [4, 4, 0, 0]
+    assert all(torch.isfinite(v) for v in ld.values())
+    assert "loss/mano/pose/r/temporal" in ld and "loss/cd/temporal" in ld
+
+    smoother, opt = smoothnet_driver.create_smoother_state(
+        4, generator=torch.Generator().manual_seed(1), device=cuda)
+    sm_step = smoothnet_driver.make_smoothnet_train_step(model, smoother, opt, *world,
+                                                         img_res=128.0, device=cuda)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    old = {n: p.detach().clone() for n, p in smoother.named_parameters()}
+    before = [c.launches for c in counts]
+    ld = sm_step(windows)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [4, 0, 0, 0]
+    assert torch.isfinite(ld["total"])
+    assert all(torch.equal(v, base[k]) for k, v in model.state_dict().items())
+    assert all(not torch.equal(p, old[n]) for n, p in smoother.named_parameters())

@@ -23,8 +23,10 @@ UVHAND_BENCH_BUDGET_S seconds (default 1200), and each as its own line
 (an error in one is printed as its line, and the rest go on): the fp32
 train step, the enc_lite train step and serving at 4x the batch
 (hi_every UVHAND_BENCH_ENC_LITE_HI, default 6), bf16 serving, the window-32
-temporal and the Swin-L train lines (not ported: each names its ROADMAP
-item and times nothing), fp32 serving.
+temporal train step (`train_frames_per_sec_chip_window32`: one window of 32
+frames from `TempoTrainDataset` on a synthetic root of max(32 + 22, B + 1)
+frames, bf16, remat, frames/s counting all 32 frames), the Swin-L train line
+(not ported: it names its ROADMAP item and times nothing), fp32 serving.
 
 A time is the host clock over UVHAND_BENCH_SCAN (default 120) steps or
 batches after a warm-up one (which builds the kernels and the
@@ -36,8 +38,16 @@ UVHAND_BENCH_LITE=0 (drop those lines), UVHAND_BENCH_MODEL=dino (the DINO
 variant: contrastive denoising fed every train step, look-forward-twice;
 its decoder runs the 300 matching and 198 dn queries) and
 UVHAND_BENCH_BACKBONE=convnext (ConvNeXt-XL; `swin` names its ROADMAP item
-and times nothing). Every line names its model and backbone. TF32 is off on
-the card, as in the CLI.
+and times nothing), UVHAND_BENCH_WINDOW=T (every line on one temporal train
+batch of max(B // T, 1) windows of T frames centred on frames of a
+synthetic root, `collate_tempo_train`, in place of the B frames; no window32
+line then), UVHAND_BENCH_SPLIT=0 (the window batches keep their centre
+frames' targets only, `center_index`; the serving lines, which need every
+frame's camera, are skipped then), UVHAND_BENCH_TEMPORAL=lstm|vivit (the
+in-model temporal head over the windows, on every window batch's model).
+Remat is on where a batch holds 24 frames or more, as the root bench
+selects it. Every line names its model and backbone. TF32 is off on the
+card, as in the CLI.
 
 The reference publishes no throughput (BASELINE.md). `vs_baseline` is
 against REFERENCE_FPS_ESTIMATE, an estimate of the CUDA reference's train
@@ -51,6 +61,7 @@ It runs on the card and raises where there is none, unless given
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import tempfile
@@ -85,31 +96,62 @@ def get_args_parser():
 BACKBONES = {"": "resnet50", "resnet50": "resnet50", "convnext": "convnext_xlarge_22k"}
 
 
+def first_batch(args, batch_size: int, window: int = 0, split_window: bool = True) -> dict:
+    """The first batch of a synthetic ARCTIC root through the data path, its
+    object GT consistent with the synthetic bank: `batch_size` frames
+    (`ArcticDataset`, `DataLoader`), or with a `window` max(batch_size //
+    window, 1) windows of `window` frames centred on the first frames of a
+    sequence of max(window + 22, batch_size + 1) frames (`TempoTrainDataset`,
+    `collate_tempo_train(split_window=...)`), as the root bench's
+    `_make_window_batch` takes it."""
+    from .data import arctic
+    from .data.loader import DataLoader
+    from .geometry import objects
+
+    bank = objects.synthetic_object_bank(2, device="cpu")
+    with tempfile.TemporaryDirectory(prefix="uvhand_bench_") as root:
+        if window:
+            arctic.make_synthetic_root(root, num_seqs=1, frames=max(window + 22, batch_size + 1),
+                                       views=1, obj_bank=bank)
+        else:
+            arctic.make_synthetic_root(root, num_seqs=2, frames=(batch_size + 1) // 2, views=1,
+                                       obj_bank=bank)
+        ds = arctic.ArcticDataset(root, "p1", "train", img_res=args.img_res,
+                                  kp3d_cano=bank.kp_bottom.numpy())
+        if window:
+            loader = DataLoader(arctic.TempoTrainDataset(ds, window, split_window=split_window),
+                                max(batch_size // window, 1), shuffle=False, seed=0,
+                                collate_fn=functools.partial(arctic.collate_tempo_train,
+                                                             split_window=split_window))
+        else:
+            loader = DataLoader(ds, batch_size, shuffle=False, seed=0)
+        try:
+            return next(iter(loader))
+        finally:
+            loader.close()
+
+
 class Bench:
     """The batch, the world and the model of one bench run (`model_name`
-    "deformable_detr" or "dino", `backbone` one of `BACKBONES`' values)."""
+    "deformable_detr" or "dino", `backbone` one of `BACKBONES`' values); a
+    `window` batch (`first_batch`) trains the model with the `temporal`
+    head ("none", "lstm" or "vivit") over its windows. Remat is on where
+    the batch holds 24 frames or more (a B=32 step without it needs ~2x the
+    memory of one with it, PERF.md section 5)."""
 
     def __init__(self, args, device, batch_size: int, steps: int,
-                 model_name: str = "deformable_detr", backbone: str = "resnet50"):
-        from .data import arctic
-        from .data.loader import DataLoader
+                 model_name: str = "deformable_detr", backbone: str = "resnet50",
+                 window: int = 0, split_window: bool = True, temporal: str = "none"):
         from .geometry import mano, objects
 
         self.args, self.device, self.steps = args, device, steps
         self.dino, self.backbone = model_name == "dino", backbone
-        bank = objects.synthetic_object_bank(2, device="cpu")
-        with tempfile.TemporaryDirectory(prefix="uvhand_bench_") as root:
-            # the object GT is consistent with the bank the steps use
-            arctic.make_synthetic_root(root, num_seqs=2, frames=(batch_size + 1) // 2,
-                                       views=1, obj_bank=bank)
-            ds = arctic.ArcticDataset(root, "p1", "train", img_res=args.img_res,
-                                      kp3d_cano=bank.kp_bottom.numpy())
-            loader = DataLoader(ds, batch_size, shuffle=False, seed=0)
-            try:
-                batch = next(iter(loader))
-            finally:
-                loader.close()
+        self.window, self.temporal = window, temporal if window else "none"
+        batch = first_batch(args, batch_size, window, split_window)
         self.frames = int(batch["images"].shape[0])
+        self.remat = self.frames >= 24
+        # serving needs every frame's camera and object index
+        self.serves = batch["intrinsics"].shape[0] == self.frames
         self.batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
         self.world = (mano.synthetic_mano(0, True, device=device),
                       mano.synthetic_mano(1, False, device=device),
@@ -125,6 +167,8 @@ class Bench:
                           enc_lite=enc_lite_hi > 0, enc_lite_hi_every=enc_lite_hi or 3,
                           dino_variant=self.dino, use_dn=self.dino,
                           look_forward_twice=self.dino, backbone=self.backbone,
+                          remat=self.remat, temporal_head=self.temporal,
+                          temporal_window=self.window if self.temporal != "none" else 0,
                           generator=torch.Generator().manual_seed(0), device=self.device)
 
     def _timed(self, one) -> float:
@@ -201,11 +245,17 @@ def main(argv=None) -> None:
                "skipped": "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"})
         return
     backbone = BACKBONES[env("UVHAND_BENCH_BACKBONE", "")]
-    bench = Bench(args, device, batch_size, int(env("UVHAND_BENCH_SCAN", 120)), model_name,
-                  backbone)
+    window = int(env("UVHAND_BENCH_WINDOW", "0"))
+    temporal = env("UVHAND_BENCH_TEMPORAL", "") or "none"
+    split = env("UVHAND_BENCH_SPLIT", "1") == "1"
+    steps = int(env("UVHAND_BENCH_SCAN", 120))
+    bench = Bench(args, device, batch_size, steps, model_name, backbone, window, split, temporal)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    where = {"batch": bench.frames, "model": model_name, "backbone": backbone,
-             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    where = {"batch": bench.frames, "model": model_name, "backbone": backbone, "device": card,
+             "remat": bench.remat}
+    if window:
+        where.update(window=window, split_window=split, temporal_head=bench.temporal)
 
     if env("UVHAND_BENCH_ONLY", "") == "infer":
         dt = only_dtype or "bfloat16"
@@ -234,14 +284,27 @@ def main(argv=None) -> None:
     if infer:
         extras.append(("infer_frames_per_sec_chip", lambda: bench.infer(torch.bfloat16),
                        {"dtype": "bfloat16"}))
-    extras += [("train_frames_per_sec_chip_window32", "ROADMAP Queue 1 item 9 (temporal)",
-                {"mode": "window32"}),
-               ("train_frames_per_sec_chip_swin", "ROADMAP Queue 1 item 10 (Swin-L backbone)",
-                {"mode": "swin_L_384_22k"})]
+    if not window:
+        w32_meta = {"dtype": "bfloat16", "mode": "window32", "window": 32,
+                    "split_window": split}
+
+        def window32():
+            w32 = Bench(args, device, batch_size, steps, model_name, backbone, 32, split,
+                        temporal)
+            w32_meta.update(batch=w32.frames, remat=w32.remat, temporal_head=w32.temporal)
+            return w32.train(torch.bfloat16)
+
+        extras.append(("train_frames_per_sec_chip_window32", window32, w32_meta))
+    extras.append(("train_frames_per_sec_chip_swin", "ROADMAP Queue 1 item 10 (Swin-L backbone)",
+                   {"mode": "swin_L_384_22k"}))
     if infer:
         extras.append(("infer_frames_per_sec_chip_fp32", lambda: bench.infer(torch.float32),
                        {"dtype": "float32"}))
     for metric, fn, meta in extras:
+        if metric.startswith("infer_") and not bench.serves:
+            _emit({"metric": metric, "skipped": "the window batch keeps its centre frames' "
+                   "cameras only (UVHAND_BENCH_SPLIT=0)"})
+            continue
         if isinstance(fn, str):
             _emit({"metric": metric, "skipped": f"not ported: {fn}", **meta})
             continue

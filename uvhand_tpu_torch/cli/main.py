@@ -20,6 +20,22 @@ and the ConvNeXt-XL backbone (`--backbone convnext_xlarge_22k`).
 `--use_dn` without `--two_stage`, are models the JAX package cannot build
 or train either: they raise a ValueError.
 
+The temporal routes run too. `--method arctic_lstm --window_size T`
+trains on a window of T frames centred on each frame (`TempoTrainDataset`,
+`--batch_size // T` windows a step), on every frame's targets with
+`--split_window`, else on the centre frames' only; `--temporal_head lstm|
+vivit` adds the in-model head that refines each window's selected
+parameters (it needs `--method arctic_lstm` and T > 1, else the CLI exits
+with the JAX CLI's message). `--train_smoothnet` trains an
+`ArcticSmoother(T)` on whole windows behind the frozen base model
+(`--resume` loads the base; `--smooth_resume` resumes the smoother apart
+from it), one process, a checkpoint of the smoother each epoch:
+
+  python -m uvhand_tpu_torch.cli.main --method arctic_lstm --window_size 32 \
+      --temporal_head lstm --batch_size 32 --two_stage --with_box_refine ...
+  python -m uvhand_tpu_torch.cli.main --train_smoothnet --window_size 32 \
+      --resume exps/run1/9 --two_stage --with_box_refine ...
+
 It reads ARCTIC from `{coco_path}/{dataset_file}` (`data/arctic.py`),
 batches it (`data/loader.py`), trains with a checkpoint each epoch
 (`train/checkpoint.py`), resumes (`--resume` a checkpoint directory or a
@@ -47,6 +63,7 @@ and `--dist_backend` are taken and ignored, as the JAX CLI does.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -233,9 +250,6 @@ def get_args_parser():
 
 UNPORTED = (
     # (is the option given?, what it is, its ROADMAP Queue 1 item)
-    (lambda a: a.method == "arctic_lstm", "--method arctic_lstm", "item 9 (temporal)"),
-    (lambda a: a.temporal_head != "none", "--temporal_head", "item 9 (temporal)"),
-    (lambda a: a.train_smoothnet, "--train_smoothnet", "item 9 (temporal)"),
     (lambda a: a.extract, "--extract", "item 12 (cli/extract_features.py)"),
     (lambda a: bool(a.extraction_mode), "--extraction_mode",
      "item 12 (cli/extract_predicts.py)"),
@@ -315,13 +329,74 @@ def build_model(args, device):
         enc_lite=args.enc_lite, enc_lite_hi_every=args.enc_lite_hi_every, remat=args.remat,
         compute_dtype=torch.bfloat16 if (args.bf16 or args.bf16_params) else torch.float32,
         param_dtype=torch.bfloat16 if args.bf16_params else torch.float32,
+        temporal_head=args.temporal_head,
+        temporal_window=args.window_size if args.temporal_head != "none" else 0,
         generator=torch.Generator().manual_seed(args.seed), device=device)
+
+
+def check_temporal(args) -> None:
+    """Exit, as the JAX CLI does, where `--temporal_head` is given without
+    the windows it mixes over."""
+    if args.temporal_head != "none" and (args.method != "arctic_lstm" or args.window_size <= 1):
+        raise SystemExit("--temporal_head requires --method arctic_lstm and "
+                         "--window_size > 1 (the head mixes over window frames)")
+
+
+def train_smoothnet(args, model, world, ds_train, device, max_steps=None) -> list:
+    """`--train_smoothnet`: the base `model` frozen (resumed from `--resume`
+    where given), an `ArcticSmoother(--window_size)` trained on whole
+    windows of `ds_train` (`WindowDataset`, `collate_windows`, batches of
+    `max(batch_size // window_size, 1)` windows) by AdamW at `--lr`, resumed
+    from `--smooth_resume` apart from the base model, its checkpoint (the
+    smoother and its optimizer) written each epoch to `{output_dir}/{epoch}`.
+    Returns [{"epoch", "steps", "losses"}] (the epoch's last step's losses)."""
+    from .. import engine
+    from ..data import arctic as arctic_data
+    from ..data.loader import DataLoader
+    from ..train import checkpoint as ckpt
+    from ..train import mesh
+    from ..train import smoothnet_driver as sd
+
+    if mesh.active():
+        raise SystemExit("uvhand_tpu_torch: --train_smoothnet runs in one process (as the "
+                         "JAX CLI's, which shards no smoother batch)")
+    dlw = DataLoader(arctic_data.WindowDataset(ds_train, args.window_size),
+                     max(args.batch_size // args.window_size, 1), seed=args.seed,
+                     num_workers=args.num_workers, workers_mode=args.workers_mode,
+                     collate_fn=arctic_data.collate_windows)
+    smoother, optimizer = sd.create_smoother_state(
+        args.window_size, lr=args.lr, generator=torch.Generator().manual_seed(args.seed),
+        device=device)
+    if args.smooth_resume:
+        ckpt.load_checkpoint(args.smooth_resume, smoother, optimizer)
+        print(f"smoother resumed from {args.smooth_resume}")
+    step = sd.make_smoothnet_train_step(
+        model, smoother, optimizer, *world, img_res=float(args.img_res),
+        generator=torch.Generator(device=device).manual_seed(args.seed), device=device)
+    epochs, steps = [], 0
+    try:
+        for epoch in range(args.epochs):
+            dlw.set_epoch(epoch)
+            for i, batch in enumerate(engine.device_prefetch(dlw, device)):
+                losses = step(batch)
+                steps += 1
+                if max_steps and i + 1 >= max_steps:
+                    break
+            ckpt.save_checkpoint(args.output_dir, epoch, smoother, optimizer, step=steps,
+                                 extra={"epoch": epoch})
+            losses = {k: float(v) for k, v in losses.items()}
+            print(f"smoothnet epoch {epoch}: loss={losses['total']:.4f}")
+            epochs.append({"epoch": epoch, "steps": steps, "losses": losses})
+    finally:
+        dlw.close()
+    return epochs
 
 
 def main(args) -> dict:
     """Train or evaluate as `args` say; returns what the run produced:
     {"epochs": [{"epoch", "stats", "scores"}...]} after training,
-    {"scores": [...]} (one per checkpoint) after --eval, and "timing" (the
+    {"scores": [...]} (one per checkpoint) after --eval, {"smoothnet":
+    [...]} after --train_smoothnet (`train_smoothnet`), and "timing" (the
     train steps' `wait_ms` and `step_ms`, the eval batches' `batch_ms`)."""
     from .. import engine
     from ..data import arctic as arctic_data
@@ -375,6 +450,7 @@ def main(args) -> dict:
         args.trainsplit = "minitrain"
         args.valsplit = "minival"
         args.window_size = 3
+    check_temporal(args)
 
     np.random.seed(args.seed)
     mano_r, mano_l, bank = build_world(args, device)
@@ -395,8 +471,22 @@ def main(args) -> dict:
         focal_length=args.focal_length, kp3d_cano=kp3d_cano,
         two_stage=args.two_stage, seq=args.seq, viewpoint=args.test_viewpoint)
     shard = dict(rank=rank, world_size=world_size)  # this process's rows of each batch
-    dl_train = DataLoader(ds_train, args.batch_size, seed=args.seed,
-                          num_workers=args.num_workers, workers_mode=args.workers_mode, **shard)
+    if args.method == "arctic_lstm" and not args.eval and not args.train_smoothnet:
+        # a window of --window_size frames centred on each frame (TempoDataset),
+        # batch_size // window_size windows a step flattened to frames; each
+        # process takes whole windows; targets per frame (--split_window) or
+        # the centre frames' only
+        dl_train = DataLoader(
+            arctic_data.TempoTrainDataset(ds_train, args.window_size,
+                                          split_window=args.split_window),
+            max(args.batch_size // args.window_size, 1), seed=args.seed,
+            num_workers=args.num_workers, workers_mode=args.workers_mode,
+            collate_fn=functools.partial(arctic_data.collate_tempo_train,
+                                         split_window=args.split_window), **shard)
+    else:
+        dl_train = DataLoader(ds_train, args.batch_size, seed=args.seed,
+                              num_workers=args.num_workers, workers_mode=args.workers_mode,
+                              **shard)
     dl_val = DataLoader(ds_val, args.val_batch_size, shuffle=False, drop_last=False,
                         num_workers=args.num_workers, workers_mode=args.workers_mode, **shard)
 
@@ -450,6 +540,10 @@ def main(args) -> dict:
     result: dict = {"timing": timing}
 
     try:
+        if args.train_smoothnet:
+            result["smoothnet"] = train_smoothnet(args, model, world, ds_train, device,
+                                                   max_steps)
+            return result
         if args.eval:
             ckpts = ckpt.list_checkpoints(args.resume_dir) if args.resume_dir else [None]
             result["scores"] = []

@@ -16,10 +16,12 @@ Port of `uvhand_tpu/data/arctic.py` (the reference's `ArcticDataset`,
 Works against the official ARCTIC file layout; `make_synthetic_root` writes a
 miniature structurally-identical dataset (the same files as the JAX
 package's for one seed) so the pipeline is testable without the licensed
-data. The temporal route's datasets and collates (`WindowDataset`,
-`TempoTrainDataset`, `create_windows`) and the native image path
-(`native_images="on"/"fast"`) are not ported (ROADMAP Queue 1 items 9 and
-4).
+data. The temporal route's windows are copies too: `create_windows` and
+`WindowDataset` (whole non-overlapping windows, for SmoothNet),
+`TempoTrainDataset` (a window centred on every frame, for `--method
+arctic_lstm`), `collate_tempo_train` and `collate_windows` (B windows of T
+frames flattened to B*T rows). The native image path
+(`native_images="on"/"fast"`) is not ported (ROADMAP Queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -424,6 +426,132 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         if k == "imgname":
             continue
         out[k] = np.stack([s[k] for s in samples], 0)
+    return out
+
+
+def create_windows(imgnames: List[str], window_size: int) -> List[List[str]]:
+    """Group per (subject, seq, view), chunk into non-overlapping windows,
+    pad the last window with its final element
+    (tempo_inference_dataset.py:15-42)."""
+    groups: Dict[str, List[str]] = {}
+    for n in imgnames:
+        sid, seq, view, _ = n.split("/")[-4:]
+        groups.setdefault(f"{sid}/{seq}/{view}", []).append(n)
+    windows = []
+    for key in groups:
+        names = sorted(groups[key])
+        for i in range(0, len(names), window_size):
+            w = names[i: i + window_size]
+            while len(w) < window_size:
+                w.append(w[-1])
+            windows.append(w)
+    return windows
+
+
+def _stack_window(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """T samples -> one window item: every array stacked on a new leading
+    axis (T, ...), the image names kept as a list."""
+    out = {}
+    for k in samples[0]:
+        if k == "imgname":
+            out["imgname"] = [s["imgname"] for s in samples]
+            continue
+        out[k] = np.stack([s[k] for s in samples], 0)
+    return out
+
+
+class WindowDataset:
+    """Temporal windows over an ArcticDataset (TempoInferenceDataset
+    equivalent, tempo_inference_dataset.py:45-182): each item is a stacked
+    window of `window_size` consecutive frames from one (subject, seq, view);
+    `collate_windows` flattens B windows x T frames into a B*T leading axis
+    (factory.py:56-116 collate_custom_fn)."""
+
+    def __init__(self, base: "ArcticDataset", window_size: int):
+        self.base = base
+        self.window_size = window_size
+        self.windows = create_windows(base.imgnames, window_size)
+        self._name_to_idx = {n: i for i, n in enumerate(base.imgnames)}
+
+    def __len__(self):
+        return len(self.windows)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        return _stack_window([self.base[self._name_to_idx[n]] for n in self.windows[index]])
+
+
+class TempoTrainDataset:
+    """Training windows centred per frame (`TempoDataset`,
+    arctic_tools/src/datasets/tempo_dataset.py:57-103): one item per frame;
+    the window indices are `arange(T) - (T-1)/2 + frame`, truncated toward
+    zero, clipped to `[10, n-10-1]` because the first/last 10 frames of each
+    ARCTIC sequence "are not useful" (:69-71). `center_pos` (int32) is the
+    window slot nearest the clipped frame, so the collate can keep the
+    centre frame's targets (`split_window=False`) without ragged shapes.
+    Sequences shorter than 21 frames (test fixtures) degrade to the widest
+    valid clip range."""
+
+    CLIP = 10
+
+    def __init__(self, base: "ArcticDataset", window_size: int, split_window: bool = True):
+        self.base = base
+        self.window_size = window_size
+        self.split_window = split_window
+        groups: Dict[str, List[str]] = {}
+        for n in base.imgnames:
+            sid, seq, view, _ = n.split("/")[-4:]
+            groups.setdefault(f"{sid}/{seq}/{view}", []).append(n)
+        self.groups = {k: sorted(v) for k, v in groups.items()}
+        self.items = [(k, i) for k, v in self.groups.items() for i in range(len(v))]
+        self._name_to_idx = {n: i for i, n in enumerate(base.imgnames)}
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        key, pos = self.items[index]
+        names = self.groups[key]
+        n, T = len(names), self.window_size
+        lo = min(self.CLIP, max((n - 1) // 2, 0))
+        hi = max(n - self.CLIP - 1, lo)
+        ind = np.clip((np.arange(T) - (T - 1) / 2 + pos).astype(np.int64), lo, hi)
+        out = _stack_window([self.base[self._name_to_idx[names[i]]] for i in ind])
+        out["center_pos"] = np.int32(np.argmin(np.abs(ind - np.clip(pos, lo, hi))))
+        return out
+
+
+def collate_tempo_train(samples: List[Dict[str, np.ndarray]],
+                        split_window: bool = True) -> Dict[str, np.ndarray]:
+    """Window-train collate (`collate_custom_fn`, factory.py:56-116): images
+    always flatten (B, T) -> B*T for the frame-parallel model; the other
+    arrays stay per frame with `split_window`, else only each window's
+    centre frame is kept, and `center_index` gives its row in the flattened
+    batch (read by `engine.select_output_frames`)."""
+    B = len(samples)
+    T = samples[0]["images"].shape[0]
+    centers = np.array([int(s["center_pos"]) for s in samples], np.int32)
+    out = {}
+    for k in samples[0]:
+        if k in ("imgname", "center_pos"):
+            continue
+        stacked = np.stack([s[k] for s in samples], 0)  # (B, T, ...)
+        if k == "images" or split_window:
+            out[k] = stacked.reshape((-1,) + stacked.shape[2:])
+        else:
+            out[k] = stacked[np.arange(B), centers]
+    if not split_window:
+        out["center_index"] = np.arange(B, dtype=np.int32) * T + centers
+    return out
+
+
+def collate_windows(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """(B windows, T, ...) -> (B*T, ...) leading axis (drops the names)."""
+    out = {}
+    for k in samples[0]:
+        if k == "imgname":
+            continue
+        stacked = np.stack([s[k] for s in samples], 0)  # (B, T, ...)
+        out[k] = stacked.reshape((-1,) + stacked.shape[2:])
     return out
 
 

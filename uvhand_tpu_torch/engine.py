@@ -5,8 +5,12 @@ Port of `uvhand_tpu/engine.py`:
     forward in train mode -> criterion -> backward -> global-norm clip ->
     AdamW step, with the NaN-loss guard;
   - serve (`make_eval_step`, `evaluate`, the reference's `test_pose`): GT
-    preprocessing -> forward -> query select -> decode -> (optional
-    `--iter` smoothing) -> per-frame metrics;
+    preprocessing -> forward -> query select (a temporal head's refined
+    parameters, where the model has one) -> decode -> (optional `--iter`
+    smoothing) -> per-frame metrics;
+  - temporal windows: a batch of B windows of T frames trains on every
+    frame (`collate_tempo_train(split_window=True)`) or on the centre
+    frames (`center_index`, `select_output_frames`);
   - sequence metrics (`make_sequence_eval_step`, `evaluate_sequences`): ACC
     and MDev over each (subject, sequence, view) in time order.
 The loops take a `data.loader.DataLoader` (batches copied to the card by
@@ -60,10 +64,12 @@ EVAL_KEYS = (
 )
 
 #: batch keys the train step reads: the eval keys plus the DETR matching
-#: targets and the 2D hand GT that `ArcticDataset` emits for the criterion
+#: targets and the 2D hand GT that `ArcticDataset` emits for the criterion,
+#: and the centre frames' rows of a window batch (`collate_tempo_train(
+#: split_window=False)`)
 TRAIN_KEYS = EVAL_KEYS + (
     "labels", "keypoints", "target_valid", "joints_valid_r", "joints_valid_l",
-    "mano.j2d.norm.r", "mano.j2d.norm.l",
+    "mano.j2d.norm.r", "mano.j2d.norm.l", "center_index",
 )
 
 #: profiler ranges of one train step, in order (`targets` only with preprocess)
@@ -78,17 +84,32 @@ def to_device(batch: Dict[str, np.ndarray], device, keys=EVAL_KEYS) -> Dict[str,
             for k in keys if k in batch}
 
 
+def select_output_frames(outputs, idx):
+    """The rows `idx` of the model outputs that the criterion reads: the
+    stacked layers (batch on axis 1), the `interm_outputs` and the
+    `temporal_selected` parameters (axis 0). Temporal centre-frame training
+    (`split_window=False`, tempo_dataset.py:97-103) runs the model on all
+    B*T window frames and the criterion on the B centre frames only."""
+    out = dict(outputs)
+    out["stacked"] = {k: None if v is None else v[:, idx] for k, v in outputs["stacked"].items()}
+    for key in ("interm_outputs", "temporal_selected"):
+        if outputs.get(key) is not None:
+            out[key] = {k: None if v is None else v[idx] for k, v in outputs[key].items()}
+    return out
+
+
 def gather_global_batch(outputs, targets, group):
     """The model outputs that the criterion reads (the stacked decoder
     layers and the dn queries' per-layer outputs, batch on axis 1, the
-    encoder's `interm_outputs` and the `dn_meta`, batch on axis 0) and the
+    encoder's `interm_outputs`, the temporal head's `temporal_selected` and
+    the `dn_meta`, batch on axis 0) and the
     processed targets (but the images) of the global batch, every
     process's share in rank order (`train.mesh.gather_batch`): only this
     process's rows carry autograd."""
     out = {"stacked": {k: gather_batch(v, 1, group) for k, v in outputs["stacked"].items()}}
-    if "interm_outputs" in outputs:
-        out["interm_outputs"] = {k: gather_batch(v, 0, group)
-                                 for k, v in outputs["interm_outputs"].items()}
+    for key in ("interm_outputs", "temporal_selected"):
+        if key in outputs:
+            out[key] = {k: gather_batch(v, 0, group) for k, v in outputs[key].items()}
     if "dn_outputs" in outputs:
         dn = outputs["dn_outputs"]
         out["dn_outputs"] = {k: gather_batch(v, 1, group) for k, v in dn.items()
@@ -116,19 +137,28 @@ def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weight
     (`dn_targets`), as the JAX package's step feeds them; a given `dn_meta`
     (this process's rows) replaces the CDN draw. With a `process_group`,
     `batch` is this process's share of the global batch, and the loss is
-    the global batch's (`gather_global_batch`)."""
+    the global batch's (`gather_global_batch`). A batch with `center_index`
+    (a window batch whose targets are its windows' centre frames) runs the
+    model on every frame and the criterion on those rows
+    (`select_output_frames`), each process on its own rows before the
+    gather; it feeds no CDN targets, as the JAX package does."""
     use_dn = getattr(model, "use_dn", False)
 
     def loss_fn(batch, generator, dn_meta=None):
+        batch = dict(batch)
+        center_index = batch.pop("center_index", None)
         if preprocess:
             with torch.no_grad(), record_function("targets"):
                 targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
         else:
             targets = batch["targets"]
         with record_function("forward"):
-            dn = dict(dn_targets=dn_targets(targets), dn_meta=dn_meta) if use_dn else {}
+            dn = ({} if not use_dn or center_index is not None
+                  else dict(dn_targets=dn_targets(targets), dn_meta=dn_meta))
             outputs = model(batch["images"], generator=generator, **dn)
         with record_function("criterion"):
+            if center_index is not None:
+                outputs = select_output_frames(outputs, center_index.long())
             if process_group is not None:
                 outputs, targets = gather_global_batch(outputs, targets, process_group)
             return arctic_criterion(outputs, targets, mano_r, mano_l, obj_bank, img_res=img_res,
@@ -254,6 +284,14 @@ def train_one_epoch(train_step, loader: Iterable, epoch: int = 0,
     return {k: m.global_avg for k, m in logger.meters.items()}
 
 
+def selected_params(outputs):
+    """The parameters the serving path decodes: a temporal head's refined
+    ones where the model has one, else the last layer's selected queries."""
+    if outputs.get("temporal_selected") is not None:
+        return outputs["temporal_selected"]
+    return select_queries({k: v[-1] for k, v in outputs["stacked"].items() if v is not None})
+
+
 def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
                    metrics=BATCH_METRICS, smooth_iter: int = 0, device=None):
     """-> step(batch) -> {metric: (B,) tensor} for a batch of numpy arrays or
@@ -271,10 +309,8 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
         model.eval()
         batch = to_device(batch, device)
         targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
-        outputs = model(batch["images"])
-        last = {k: v[-1] for k, v in outputs["stacked"].items() if v is not None}
-        pred = decode_predictions(select_queries(last), targets, mano_r, mano_l,
-                                  obj_bank, img_res)
+        pred = decode_predictions(selected_params(model(batch["images"])), targets, mano_r,
+                                  mano_l, obj_bank, img_res)
         if smooth_iter > 0:
             for k in ("object.v.cam", "mano.v3d.cam.r", "mano.v3d.cam.l"):
                 pred[k] = arctic_smoothing(pred[k], smooth_iter).reshape(pred[k].shape)
@@ -318,10 +354,8 @@ def make_sequence_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 22
         model.eval()
         batch = to_device(batch, device)
         targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
-        outputs = model(batch["images"])
-        selected = select_queries({k: v[-1] for k, v in outputs["stacked"].items()
-                                   if v is not None})
-        pred = decode_predictions(selected, targets, mano_r, mano_l, obj_bank, img_res)
+        pred = decode_predictions(selected_params(model(batch["images"])), targets, mano_r,
+                                  mano_l, obj_bank, img_res)
         return ({k: pred[k] for k in SEQ_PRED_KEYS},
                 {k: targets[k] for k in SEQ_TARGET_KEYS})
 

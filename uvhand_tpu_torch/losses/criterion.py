@@ -11,7 +11,9 @@ alone and there is neither a keypoint loss nor an interm term. Every layer of `s
 the model was built with `aux_loss`, as in the JAX package. The denoising
 queries' outputs (`dn_outputs`, the DINO variant and `use_dn`) add the
 `*_dn` losses of `models/dn.py::dn_losses`, each weighted as its base name.
-The temporal branch is not ported.
+A temporal head's refined parameters (`temporal_selected`) add one more
+small-loss pass, its keys `<name>/temporal`, each weighted as the last
+layer's `<name>`.
 
 The JAX package vmaps the small loss over the decoder layers; here a Python
 loop over layers calls it once per layer, so every reduction in it -- the
@@ -22,8 +24,8 @@ the batch, as in the JAX package. Every data-dependent branch of the
 reference is a masked mean; nothing syncs with the host.
 
 Loss keys are the JAX package's: `name` for the last layer, `name_{l}` for
-layer l < L-1, `*_dn` / `*_dn_{l}`, `*_interm`, `cardinality_error` and
-`total`.
+layer l < L-1, `*_dn` / `*_dn_{l}`, `<name>/temporal`, `*_interm`,
+`cardinality_error` and `total`.
 """
 
 from __future__ import annotations
@@ -349,6 +351,14 @@ def arctic_criterion(
         for key, val in dn_losses(dn["pred_logits"], dn["pred_hand_key"], dn["pred_obj_key"],
                                   dn["dn_meta"], num_boxes).items():
             add(key, key.split("_dn")[0], val)
+
+    if outputs.get("temporal_selected") is not None:
+        # the temporal head's refined last-layer parameters: one more small
+        # loss pass, each term weighted like the last layer's
+        small_t = compute_small_loss(outputs["temporal_selected"], targets, mano_r, mano_l,
+                                     obj_bank, img_res)
+        for name, val in small_t.items():
+            add(f"{name}/temporal", name, val)
 
     if "interm_outputs" in outputs:
         io = outputs["interm_outputs"]

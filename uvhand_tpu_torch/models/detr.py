@@ -2,7 +2,7 @@
 
 Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`, the
 ResNet-50 or ConvNeXt-XL backbone (`backbone="convnext_xlarge_22k"`), the
-DINO variant, without the temporal variants:
+DINO variant and the temporal heads:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
     stride-2 3x3 level from the last backbone map,
   - position encoding: sine (the default) or learned
@@ -36,6 +36,12 @@ DINO variant, without the temporal variants:
     `look_forward_twice` (the CLI sets it with `use_dn`) each layer's
     keypoint outputs stand on the undetached references of the layer
     before,
+  - a temporal head (`temporal_head="lstm"` or `"vivit"`, the CLI's
+    `--method arctic_lstm --temporal_head`; `models/temporal/sequence.py`)
+    refines the last layer's selected parameters over each window of
+    `temporal_window` consecutive rows (the window collates' layout) into
+    `out["temporal_selected"]`, which the criterion supervises (`/temporal`
+    terms) and the eval steps decode,
   - `aux_loss=False` drops the `aux_outputs` key only, as the JAX model
     does: `stacked` keeps every layer, and the criterion reads that,
   - train mode (`model.train()`): dropout in the transformer and the
@@ -70,7 +76,10 @@ from .backbones import convnext
 from .backbones.resnet import RESNET50_CHANNELS, ResNet50
 from .dn import CdnConfig, cdn_attn_mask, prepare_cdn
 from .layers import Conv2d, GroupNorm, Linear
+from ..losses.criterion import select_queries
 from .posenc import LearnedPositionEncoding, sine_position_encoding
+from .temporal.sequence import BLOCKS as TEMPORAL_HEADS
+from .temporal.sequence import TemporalParamHead
 from .transformer import MLP, DeformableTransformer, keep_mask
 
 BACKBONES = ("resnet50", "convnext_xlarge_22k")
@@ -117,14 +126,21 @@ class UVHandDETR(nn.Module):
                  param_dtype: torch.dtype = torch.float32, backbone: str = "resnet50",
                  use_dn: bool = False, dino_variant: bool = False, dn_number: int = 100,
                  dn_label_noise_ratio: float = 0.5, dn_box_noise_scale: float = 1.0,
-                 look_forward_twice: bool = False,
+                 look_forward_twice: bool = False, temporal_head: str = "none",
+                 temporal_window: int = 0,
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
         (the CUDA card unless `device="cpu"` is given), in eval mode.
         Raises ValueError on a combination the JAX model cannot build
         (`two_stage=True, with_box_refine=False` but for the DINO variant;
-        the DINO variant or `use_dn` without `two_stage`)."""
+        the DINO variant or `use_dn` without `two_stage`), and on an unknown
+        `temporal_head` or one with a `temporal_window` below 2."""
         super().__init__()
+        if temporal_head != "none" and temporal_head not in TEMPORAL_HEADS:
+            raise ValueError(f"unknown temporal_head {temporal_head!r}: none, lstm or vivit")
+        if temporal_head != "none" and temporal_window <= 1:
+            raise ValueError(f"temporal_head {temporal_head!r} needs temporal_window > 1, "
+                             f"got {temporal_window}")
         if position_embedding not in ("sine", "learned"):
             raise ValueError(f"unknown position_embedding {position_embedding!r}")
         if backbone not in BACKBONES:
@@ -207,6 +223,9 @@ class UVHandDETR(nn.Module):
                            ("hand_cam", 3), ("obj_cam", 3), ("obj_rot", 3),
                            ("obj_rad", 1)):
             setattr(self, name, nn.ModuleList([Linear(d_model, dout)] * num_pred))
+        # the JAX model's head is 256 wide whatever d_model is
+        self.temporal_param_head = (None if temporal_head == "none"
+                                    else TemporalParamHead(temporal_window, kind=temporal_head))
         self.reset_parameters(generator)
         self.to(device=device, dtype=param_dtype)
         self.eval()
@@ -218,8 +237,9 @@ class UVHandDETR(nn.Module):
         learned queries, the DINO content queries and the dn label
         embedding ~ N(0, 1), learned position embeddings ~ U(0, 1), the
         focal-loss prior on the class biases, the two-stage xy spread at
-        logit(0.05), and in the DINO variant zero last layers of the keypoint
-        MLPs."""
+        logit(0.05), in the DINO variant zero last layers of the keypoint
+        MLPs, and the temporal head's own draws (`TemporalParamHead.
+        reset_parameters`: its `out_proj`s zero)."""
         for mod in self.modules():
             # (the backbone's bias-free convs are drawn by its own reset below)
             if isinstance(mod, (nn.Linear, nn.Conv2d)) and mod.bias is not None:
@@ -252,6 +272,8 @@ class UVHandDETR(nn.Module):
             for mlp in (self.key_embed[0], self.obj_key_embed[0], t.enc_out_key_embed,
                         t.enc_out_obj_key_embed):
                 mlp.layers[-1].weight.zero_()
+        if self.temporal_param_head is not None:
+            self.temporal_param_head.reset_parameters(generator)
 
     @property
     def body(self) -> nn.Module:
@@ -374,4 +396,7 @@ class UVHandDETR(nn.Module):
             }
         if dn_out is not None:
             out["dn_outputs"] = dn_out
+        if self.temporal_param_head is not None:
+            last = {k: v[-1] for k, v in out["stacked"].items() if v is not None}
+            out["temporal_selected"] = self.temporal_param_head(select_queries(last))
         return out

@@ -21,6 +21,9 @@ surface:
     optimizer, so a resumed schedule continues where it stopped;
   - `load_torch_pth` reads a reference `.pth` (the parameters only);
   - `list_checkpoints` lists the epoch checkpoints of a `--resume_dir` sweep.
+The same functions take any module: `--train_smoothnet` writes the SmoothNet
+smoother and its optimizer each epoch, and `--smooth_resume` restores them
+apart from the base model (`--resume`), as the JAX CLI does.
 """
 
 from __future__ import annotations

@@ -34,6 +34,8 @@ reference does:
                                       cams, rot, rad: the reference
                                       registers the same module n times)
   label_enc/embedding              -> label_enc.weight (`use_dn`)
+  temporal_param_head/ta_<p>/...   -> temporal_param_head.ta_<p>.* (the temporal
+                                      head, `temporal_head_from_jax`)
 DINO variant (a `tgt_embed` leaf), the reference DINO names:
   transformer/tgt_embed            -> transformer.tgt_embed.weight
   transformer/two_stage_learn_xy   -> transformer.two_stage_wh_embedding.weight
@@ -44,6 +46,19 @@ DINO variant (a `tgt_embed` leaf), the reference DINO names:
   transformer/enc_out_cls_head     -> transformer.enc_out_class_embed
   transformer/enc_out_(obj_)key_head/layer{j}
                                    -> transformer.enc_out_(obj_)key_embed.layers.{j}
+
+The temporal head's blocks: `in_proj`, `out_proj`, and either the BiLSTM
+(`bilstm/{fwd,bwd}/OptimizedLSTMCell_0`: the input kernels `ii/if/ig/io`
+stacked in torch's gate order into `bilstm.lstm.weight_ih_l0{,_reverse}`,
+the recurrent `hi/hf/hg/ho` into `weight_hh_l0{,_reverse}` and their
+biases into `bias_hh_l0{,_reverse}`; `bias_ih` is zero: the flax cell has
+no input bias) or the ViViT blocks (`temporal_pos`; `ln1_{i}`, `ln2_{i}`
+-> `ln1.{i}`, `ln2.{i}`; `attn_{i}` query/key/value/out (in, heads,
+head_dim) -> `attn.{i}.in_proj_weight` / `out_proj`; `fc1_{i}`, `fc2_{i}`
+-> `fc1.{i}`, `fc2.{i}`). `smoother_state_dict_from_jax` maps an
+`ArcticSmoother` tree (`<smoother>/{pos,vel,acc}/{encoder, res{i}/Dense_0,
+Dense_1, decoder}`, `<smoother>/fusion`) onto the port's names
+(`<smoother>.{pos,vel,acc}.{encoder, res.{i}.fc1, fc2, decoder}`).
 
 Dense kernels (in, out) are transposed to torch's (out, in); convs go
 HWIO -> OIHW. A bfloat16 leaf (a `bf16_params` tree) is widened to float32
@@ -77,14 +92,81 @@ def _count(tree: dict, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix) and k[len(prefix):].isdigit())
 
 
+def _linear(sd: dict, dst: str, node) -> None:
+    sd[f"{dst}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{dst}.bias"] = _t(node["bias"])
+
+
+def _mha(sd: dict, dst: str, node) -> None:
+    """flax MultiHeadDotProductAttention (query/key/value kernels (d, heads,
+    head_dim), out (heads, head_dim, d)) -> torch's packed in_proj and
+    out_proj."""
+    d = np.asarray(node["query"]["kernel"]).shape[0]
+    sd[f"{dst}.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(node[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
+    sd[f"{dst}.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(node[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+    sd[f"{dst}.out_proj.weight"] = _t(np.asarray(node["out"]["kernel"]).reshape(d, d).T)
+    sd[f"{dst}.out_proj.bias"] = _t(node["out"]["bias"])
+
+
+def temporal_head_from_jax(head: dict,
+                           prefix: str = "temporal_param_head") -> Dict[str, torch.Tensor]:
+    """A flax `TemporalParamHead` tree -> the port's `TemporalParamHead`
+    state dict, its names under `prefix`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, block in head.items():
+        dst = f"{prefix}.{name}"
+        _linear(sd, f"{dst}.in_proj", block["in_proj"])
+        _linear(sd, f"{dst}.out_proj", block["out_proj"])
+        if "bilstm" in block:
+            for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+                cell = block["bilstm"][direction]["OptimizedLSTMCell_0"]
+                w_ih = np.concatenate([np.asarray(cell[g]["kernel"]).T
+                                       for g in ("ii", "if", "ig", "io")])
+                lstm = f"{dst}.bilstm.lstm"
+                sd[f"{lstm}.weight_ih_l0{suffix}"] = _t(w_ih)
+                sd[f"{lstm}.weight_hh_l0{suffix}"] = _t(np.concatenate(
+                    [np.asarray(cell[g]["kernel"]).T for g in ("hi", "hf", "hg", "ho")]))
+                sd[f"{lstm}.bias_ih_l0{suffix}"] = _t(np.zeros(w_ih.shape[0], w_ih.dtype))
+                sd[f"{lstm}.bias_hh_l0{suffix}"] = _t(np.concatenate(
+                    [np.asarray(cell[g]["bias"]) for g in ("hi", "hf", "hg", "ho")]))
+            continue
+        sd[f"{dst}.temporal_pos"] = _t(block["temporal_pos"])
+        for i in range(_count(block, "attn_")):
+            _mha(sd, f"{dst}.attn.{i}", block[f"attn_{i}"])
+            for n in ("ln1", "ln2"):
+                sd[f"{dst}.{n}.{i}.weight"] = _t(block[f"{n}_{i}"]["scale"])
+                sd[f"{dst}.{n}.{i}.bias"] = _t(block[f"{n}_{i}"]["bias"])
+            for n in ("fc1", "fc2"):
+                _linear(sd, f"{dst}.{n}.{i}", block[f"{n}_{i}"])
+    return sd
+
+
+def smoother_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """A flax `ArcticSmoother` tree (`{'params': ...}` or its inner dict) ->
+    the port's `ArcticSmoother` state dict."""
+    p = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name, motion in p.items():
+        for branch in ("pos", "vel", "acc"):
+            src, dst = motion[branch], f"{name}.{branch}"
+            _linear(sd, f"{dst}.encoder", src["encoder"])
+            _linear(sd, f"{dst}.decoder", src["decoder"])
+            for i in range(_count(src, "res")):
+                _linear(sd, f"{dst}.res.{i}.fc1", src[f"res{i}"]["Dense_0"])
+                _linear(sd, f"{dst}.res.{i}.fc2", src[f"res{i}"]["Dense_1"])
+        _linear(sd, f"{name}.fusion", motion["fusion"])
+    return sd
+
+
 def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """Flax `{'params': ...}` tree (or its inner dict) -> port state_dict."""
     p = params.get("params", params)
     sd: Dict[str, torch.Tensor] = {}
 
     def linear(dst, node):
-        sd[f"{dst}.weight"] = _t(np.asarray(node["kernel"]).T)
-        sd[f"{dst}.bias"] = _t(node["bias"])
+        _linear(sd, dst, node)
 
     def norm(dst, node):
         sd[f"{dst}.weight"] = _t(node["scale"])
@@ -165,14 +247,7 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         src, dst = t[f"decoder_layer{i}"], f"transformer.decoder.layers.{i}"
         for lin in msda:
             linear(f"{dst}.cross_attn.{lin}", src["cross_attn"][lin])
-        mha = src["self_attn"]
-        d = np.asarray(mha["query"]["kernel"]).shape[0]
-        sd[f"{dst}.self_attn.in_proj_weight"] = _t(np.concatenate(
-            [np.asarray(mha[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
-        sd[f"{dst}.self_attn.in_proj_bias"] = _t(np.concatenate(
-            [np.asarray(mha[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
-        sd[f"{dst}.self_attn.out_proj.weight"] = _t(np.asarray(mha["out"]["kernel"]).reshape(d, d).T)
-        sd[f"{dst}.self_attn.out_proj.bias"] = _t(mha["out"]["bias"])
+        _mha(sd, f"{dst}.self_attn", src["self_attn"])
         for n in ("norm1", "norm2", "norm3"):
             norm(f"{dst}.{n}", src[n])
         for lin in ("linear1", "linear2"):
@@ -221,4 +296,6 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     for flax_name, torch_name in _SHARED_HEADS:
         for i in range(num_pred):
             linear(f"{torch_name}.{i}", p[flax_name])
+    if "temporal_param_head" in p:
+        sd.update(temporal_head_from_jax(p["temporal_param_head"]))
     return sd
