@@ -143,8 +143,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      launched resumed eval's and to this process's eval of the checkpoint;
   17. the port's bench (`python -m uvhand_tpu_torch.bench`, a few steps a
      mode): its first line the bf16 train headline, finite and > 0, every
-     other line a rate or a named skip, 12 staged forward launches a call
-     and 12 backward a train step; its lines logged beside the card;
+     other line a rate (the Swin-L train line too), 12 staged forward
+     launches a call and 12 backward a train step; its lines logged beside
+     the card;
   18. DINO_4scale at full width (`dino_variant`, `use_dn`,
      look-forward-twice, dn_number 100: the decoder's calls of a train step
      take 300 + 198 CDN queries), float32 and bf16: 2 serving batches (12
@@ -175,11 +176,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-identical, the smoother moved); then the CLI on phase 13's root
      with window 3: `--method arctic_lstm --temporal_head lstm` (an epoch of
      2 steps and its eval, `--eval --resume` with equal scores),
-     `--train_smoothnet` (2 steps) and `--smooth_resume` of its smoother.
+     `--train_smoothnet` (2 steps) and `--smooth_resume` of its smoother;
+  21. arctic_sf on the Swin-L backbone (`swin_L_384_22k`) at full width,
+     float32 and bf16: 2 serving batches (12 staged forward launches each)
+     held end to end against the plain MSDA run, a train pass against the
+     plain versions (losses within 1e-4; gradients within 1e-3 / 5e-2 of
+     each tensor's max), 3 train steps (12 + 12 staged launches a step, no
+     other kernel; the steady step ms, frames/s and peak memory), one step
+     with remat on (24 + 12) and its peak, a profiled step's busy share;
+     then the CLI with `--backbone swin_L_384_22k` on phase 13's root: an
+     epoch of 2 steps and its eval, and `--eval --resume` with equal scores;
+  22. the AssemblyHands model (`AssemblyDETR`: R50, 224x224, d=256, 6+6
+     layers, 3 queries, float32) on batches of 16 from a synthetic COCO
+     root: 2 serving batches (12 staged forward launches each, the decoder's
+     6 at Lq 3) held end to end against the plain MSDA run, a train pass
+     against the plain versions (every criterion term within 1e-4,
+     gradients within 1e-3 of each tensor's max), 3 train steps (12 + 12
+     staged launches a step, no other kernel; step ms, frames/s, peak
+     memory) and profiled lines; then the CLI with `--dataset_file
+     AssemblyHands` and with `H2O`: an epoch of 2 steps, its checkpoint and
+     eval, and `--eval --resume` with equal scores.
   Phases 3 and 3b also time the forward and backward kernels on one
   enc_lite call (Lq 261, S 1045, B=16, float32), on one DINO decoder
-  call (Lq 498, float32 and bf16) and on one encoder call of the temporal
-  train step (B=32 frames, float32) beside their bounds.
+  call (Lq 498, float32 and bf16), on one encoder call of the temporal
+  train step (B=32 frames, float32) and on one AssemblyHands decoder call
+  (Lq 3, S 1045, B=16, float32) beside their bounds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -369,6 +390,7 @@ def kernel_phase():
         ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
         ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
         ("temporal encoder fp32", dict(enc, B=TEMPORAL_WINDOW), (0.0, 1.0), torch.float32, True),
+        ("assembly decoder fp32", dict(enc, Lq=ASSEMBLY_LQ), (-0.5, 1.5), torch.float32, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -405,7 +427,7 @@ def kernel_phase():
             if dtype == torch.float32:
                 max_err[kind] = max(max_err[kind], err)
         if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder",
-                                             "temporal")):
+                                             "temporal", "assembly")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -450,6 +472,7 @@ def backward_kernel_phase():
         ("dn decoder fp32", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.float32, True),
         ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
         ("temporal encoder fp32", dict(enc, B=TEMPORAL_WINDOW), (0.0, 1.0), torch.float32, True),
+        ("assembly decoder fp32", dict(enc, Lq=ASSEMBLY_LQ), (-0.5, 1.5), torch.float32, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -493,7 +516,7 @@ def backward_kernel_phase():
                 + (f" (plan: levels {plan.groups}, {plan.smem} B of shared memory)"
                    if kind == "staged" else ""))
         if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder",
-                                             "temporal")):
+                                             "temporal", "assembly")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -1849,9 +1872,10 @@ def launcher_phase(card):
 def bench_phase(card):
     """Phase 17: `python -m uvhand_tpu_torch.bench` with UVHAND_BENCH_SCAN =
     BENCH_SCAN: its first line is the bf16 train headline, finite and > 0;
-    every mode's line a rate or a named skip, none an error; launches 12
-    (+ 12 backward) a call of each mode, its warm-up included (the window-32
-    train step, under remat, 24 + 12), all staged.
+    every mode's line a rate (the Swin-L train line too), none
+    an error or a skip; launches 12 (+ 12 backward) a call of each mode, its
+    warm-up included (the window-32 train step, under remat, 24 + 12), all
+    staged.
     Logs its lines as the bench printed them, beside the card."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1864,15 +1888,14 @@ def bench_phase(card):
             and np.isfinite(head.get("value", np.nan)) and head["value"] > 0):
         raise AssertionError(f"[bench] the first line is not the headline: {lines[0]}")
     timed = [r for r in rows if "value" in r]
-    bad = [r for r in rows if not ("value" in r and np.isfinite(r["value"]) and r["value"] > 0
-                                   or str(r.get("skipped", "")).startswith("not ported"))]
-    if bad or len(timed) != 7:
-        raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 7")
+    bad = [r for r in rows if not ("value" in r and np.isfinite(r["value"]) and r["value"] > 0)]
+    if bad or len(timed) != 8:
+        raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 8")
     calls = 1 + BENCH_SCAN  # a mode's calls: its warm-up and the timed ones
-    # 3 train and 3 serving modes, 12 (+ 12) a call, and the window-32 train
-    # step under remat, 24 + 12
-    want = expected(staged({"msda_fwd": 8 * MSDA_PER_FORWARD * calls,
-                            "msda_bwd": 4 * MSDA_PER_FORWARD * calls}))
+    # 4 train (the Swin-L one included) and 3 serving modes, 12 (+ 12) a
+    # call, and the window-32 train step under remat, 24 + 12
+    want = expected(staged({"msda_fwd": 9 * MSDA_PER_FORWARD * calls,
+                            "msda_bwd": 5 * MSDA_PER_FORWARD * calls}))
     if counts != want:
         raise AssertionError(f"[bench] launches {counts}, expected {want}")
     for line in lines:
@@ -2222,6 +2245,338 @@ def temporal_cli_phase(card):
     return runs
 
 
+# ------------------------------------------------------------ 21. Swin-L
+
+SWIN = "swin_L_384_22k"
+SWIN_BATCHES, SWIN_STEPS = 2, 3
+
+
+def swin_phase(world, batches, train_batches, card):
+    """Phase 21: arctic_sf (two-stage, box refinement, R50 swapped for the
+    Swin-L of `swin_L_384_22k`: embed 192, depths 2/2/18/2, window 12) at
+    full width, float32 and bf16 compute: SWIN_BATCHES serving batches (12
+    staged forward launches each) held end to end against the plain MSDA
+    run; a train pass against the plain versions from the same weights and
+    generator seed (losses within 1e-4; gradients within 1e-3 / 5e-2 of
+    each tensor's max); SWIN_STEPS train steps (12 + 12 staged launches a
+    step, no other kernel), the steady step ms, frames/s and peak device
+    memory; one step with remat on (24 + 12) and its peak; a profiled step's
+    device busy share. Returns {tag: (serving launches, training launches)}."""
+    t_phase = time.perf_counter()
+    counts = {}
+    for tag, dtype, grad_tol in (("swin fp32", torch.float32, 1e-3),
+                                 ("swin bf16", torch.bfloat16, 5e-2)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_model(backbone=SWIN, compute_dtype=dtype)
+        n_bb = sum(p.numel() for p in model.body.parameters())
+        log(f"[swin] {tag}: built in {time.perf_counter() - t0:.2f} s, "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters "
+            f"({n_bb / 1e6:.1f}M in the Swin)")
+        rows, _, serve = main_path_phase(model, world, batches[:SWIN_BATCHES], card, tag)
+        e2e_phase(model, world, batches[0], rows[0], tag)
+        train_ab_phase(model, world, train_batches[0], grad_tol=grad_tol, tag=tag)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, train = train_phase(model, world, train_batches[:SWIN_STEPS], card, tag)
+        peak = torch.cuda.max_memory_allocated()
+        steady = float(np.median(times[1:]))
+        log(f"[swin] {tag}: steady train step {steady * 1e3:.3f} ms ({BATCH / steady:.1f} "
+            f"frames/s, B={BATCH}), peak device memory {peak / 2**30:.3f} GiB allocated over its "
+            f"steps, remat off ({card})")
+        step = engine.make_fused_train_step(
+            model, *world, create_optimizer(model), img_res=IMG_RES,
+            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        profile_line(f"{tag} train step", lambda: step(train_batches[1]))
+        model.transformer.remat = True
+        step(train_batches[2])  # warm-up of the remat path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t1 = time.perf_counter()
+        step(train_batches[0])
+        torch.cuda.synchronize()
+        dt, peak = time.perf_counter() - t1, torch.cuda.max_memory_allocated()
+        remat = read_counts()
+        want = expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}))
+        if remat != want:
+            raise AssertionError(f"[swin] {tag} remat step: launches {remat}, expected {want}")
+        log(f"[swin] {tag} remat on: a step {dt * 1e3:.3f} ms, peak device memory "
+            f"{peak / 2**30:.3f} GiB allocated; launches "
+            f"{json.dumps({k: v for k, v in remat.items() if v})} ({card})")
+        counts[tag] = (serve, train)
+        del model, step
+    torch.cuda.empty_cache()
+    log(f"[swin] phase 21 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return counts
+
+
+def resumed_cli_runs(name, runs_argv, check_scores=True):
+    """Each (tag, argv, expected launches) of `runs_argv` through
+    `cli.main.main`, launches checked; the first run's epoch scores must
+    equal the second's (`--eval --resume`) exactly, and every number be
+    finite. Returns ({tag: launches}, {tag: result})."""
+    parse = cli.get_args_parser().parse_args
+    runs, res = {}, {}
+    for tag, argv, want in runs_argv:
+        reset_counts()
+        t0 = time.perf_counter()
+        res[tag] = cli.main(parse(argv))
+        torch.cuda.synchronize()
+        runs[tag] = read_counts()
+        if runs[tag] != want:
+            raise AssertionError(f"[{name}] {tag}: launches {runs[tag]}, expected {want}")
+        log(f"[{name}] {tag}: wall clock {time.perf_counter() - t0:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in runs[tag].items() if v})}")
+    (train, resume) = [t for t, _, _ in runs_argv]
+    epoch, resumed = res[train]["epochs"][0], res[resume]["scores"][0]
+    for k, v in epoch["scores"].items():
+        if not (v == resumed[k] or (np.isnan(v) and np.isnan(resumed[k]))):
+            raise AssertionError(f"[{name}] {k}: resumed eval {resumed[k]} != in-process {v}")
+    bad = sorted(k for k, v in epoch["stats"].items() if not np.isfinite(v))
+    if bad:
+        raise AssertionError(f"[{name}] losses not finite: {bad}")
+    log(f"[{name}] losses {json.dumps(epoch['stats'])}; the resumed eval's scores equal the "
+        f"in-process eval's: {json.dumps(resumed)}")
+    return runs, res
+
+
+def swin_cli_phase(card):
+    """The CLI with `--backbone swin_L_384_22k` (fp32) on phase 13's root: an
+    epoch of 2 `--debug` steps and its eval (2 batches), then `--eval
+    --resume` of its checkpoint with the default metrics; 12 staged forward
+    launches a batch and 12 + 12 a step, no other kernel."""
+    t_phase = time.perf_counter()
+    data_dir = os.path.join(CLI_DIR, "data")
+    out = os.path.join(CLI_DIR, "swin")
+    seq_batches = CLI_SEQS * CLI_VIEWS * -(-CLI_FRAMES // BATCH)
+    runs, _ = resumed_cli_runs("swin-cli", (
+        ("swin train epoch", cli_argv(data_dir, out, "--num_debug", "2", "--backbone", SWIN),
+         expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD}), 2)),
+        ("swin eval --resume", cli_argv(data_dir, out + "_eval", "--num_debug", "2",
+                                        "--backbone", SWIN, "--eval", "--resume",
+                                        os.path.join(out, "0")),
+         expected(SERVE, 2 + seq_batches))))
+    log(f"[swin-cli] took {time.perf_counter() - t_phase:.2f} s ({card})")
+    return runs
+
+
+# ------------------------------------------------------------ 22. AssemblyHands
+
+COCO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "coco_smoke")
+#: images of each synthetic COCO root (train and val list the same ones)
+COCO_IMAGES = 64
+#: the AssemblyHands decoder's calls: 3 queries (left, right, object)
+ASSEMBLY_LQ = 3
+ASSEMBLY_BATCHES, ASSEMBLY_STEPS = 2, 3
+
+
+def coco_roots():
+    """Synthetic AssemblyHands and H2O roots (`make_synthetic_coco_root`,
+    480x640 images) under build/coco_smoke/data, and from the AssemblyHands
+    one batches of BATCH through `CocoHandsDataset` and `collate`: serving
+    batches of the val split, train batches of the augmented train split."""
+    from uvhand_tpu_torch.data.coco_hands import CocoHandsDataset, collate, \
+        make_synthetic_coco_root
+
+    shutil.rmtree(COCO_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    for i, name in enumerate(("AssemblyHands", "H2O")):
+        make_synthetic_coco_root(os.path.join(COCO_DIR, "data", name), n_images=COCO_IMAGES,
+                                 seed=SEED + i)
+    root = os.path.join(COCO_DIR, "data", "AssemblyHands")
+    val = CocoHandsDataset(root, "val", img_res=IMG_RES)
+    train = CocoHandsDataset(root, "train", img_res=IMG_RES, aug=True, seed=SEED)
+    serve = [collate([val[j] for j in range(i * BATCH, (i + 1) * BATCH)])
+             for i in range(ASSEMBLY_BATCHES)]
+    steps = [collate([train[j % COCO_IMAGES] for j in range(i * BATCH, (i + 1) * BATCH)])
+             for i in range(ASSEMBLY_STEPS + 1)]
+    log(f"[assembly] two synthetic COCO roots of {COCO_IMAGES} images written and "
+        f"{len(serve) + len(steps)} batches of {BATCH} read in {time.perf_counter() - t0:.2f} s")
+    return serve, steps
+
+
+def assembly_phase(card):
+    """Phase 22: `AssemblyDETR` at full width (R50, 224x224, d=256, 8 heads,
+    6+6 layers, FFN 1024, 3 queries; float32, as the model always runs) on
+    batches of BATCH from a synthetic AssemblyHands root: ASSEMBLY_BATCHES
+    serving batches through `engine.make_assembly_eval_step` (12 staged
+    forward launches each: 6 encoder calls at Lq 1045, 6 decoder calls at
+    Lq 3) held end to end against the plain MSDA run; a train pass (dropout
+    on, one generator seed) against the plain versions (every criterion
+    term within 1e-4, gradients within 1e-3 of each tensor's max);
+    ASSEMBLY_STEPS steps of `engine.make_assembly_train_step` (12 + 12
+    staged launches a step, no other kernel, every group moving), the
+    steady step ms, frames/s and peak memory, and a profiled step. Returns
+    (serving launches, training launches)."""
+    from uvhand_tpu_torch.models.assembly import AssemblyDETR, assembly_criterion
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve_batches, train_batches = coco_roots()
+    model = AssemblyDETR(generator=torch.Generator().manual_seed(SEED), device="cuda")
+    log(f"[assembly] AssemblyDETR: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        f"parameters")
+    step = engine.make_assembly_eval_step(model)
+    reset_counts()
+    preds = []
+    for i, batch in enumerate(serve_batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        preds.append(out["pred"])
+        log(f"[serve] assembly batch {i}: {dt * 1e3:.3f} ms, {BATCH / dt:.1f} frames/s "
+            f"(B={BATCH}, fp32, {card})")
+        if out["pred"].shape != (BATCH, 3, 63) or not bool(torch.isfinite(out["pred"]).all()):
+            raise AssertionError(f"[assembly] batch {i}: predictions {out['pred'].shape} not "
+                                 f"finite or of the wrong shape")
+    serve = read_counts()
+    if serve != expected(SERVE, len(serve_batches)):
+        raise AssertionError(f"[assembly] serving launches {serve}, expected "
+                             f"{expected(SERVE, len(serve_batches))}")
+    from uvhand_tpu_torch.evaluation.coco_eval import assembly_keypoint_metrics
+
+    scores = assembly_keypoint_metrics(
+        torch.cat(preds).cpu().numpy(), np.concatenate([b["keypoints63"] for b in serve_batches]),
+        np.concatenate([b["target_valid"] for b in serve_batches]), (IMG_RES, IMG_RES))
+    log(f"[serve] assembly launches {json.dumps({k: v for k, v in serve.items() if v})}; scores "
+        f"(random weights) {json.dumps(scores)}")
+
+    # end to end against the plain MSDA run
+    images = torch.as_tensor(serve_batches[0]["images"], device="cuda")
+    with torch.inference_mode():
+        out_k = model(images)["stacked"]
+        set_msda_impl(model, "torch")
+        try:
+            out_p = model(images)["stacked"]
+            pred_p = step(serve_batches[0])["pred"]
+        finally:
+            set_msda_impl(model, "auto")
+    for k in ("pred_logits", "pred_keypoints"):
+        d = float((out_k[k] - out_p[k]).abs().max())
+        log(f"[e2e] assembly {k}: kernel vs plain max_abs_diff={d:.3e} (tol 1e-4)")
+        if d > 1e-4:
+            raise AssertionError(f"[assembly] kernel and plain runs disagree on {k}")
+    d = float((preds[0] - pred_p).abs().max())
+    log(f"[e2e] assembly selected keypoints: kernel vs plain max_abs_diff={d:.3e} (tol 1e-4)")
+    if d > 1e-4:
+        raise AssertionError("[assembly] kernel and plain runs select other keypoints")
+
+    # train pass, kernels against the plain versions
+    tb = engine.to_device(train_batches[0], "cuda", engine.COCO_KEYS)
+    params = dict(model.named_parameters())
+    runs = {}
+    model.train()
+    try:
+        for impl in ("auto", "torch"):
+            set_msda_impl(model, impl)
+            model.zero_grad(set_to_none=True)
+            out = model(tb["images"], torch.Generator(device="cuda").manual_seed(SEED))
+            total, ld = assembly_criterion(out, tb["labels"], tb["keypoints63"],
+                                           tb["target_valid"])
+            total.backward()
+            runs[impl] = ({k: float(v.detach()) for k, v in ld.items()},
+                          {n: p.grad.clone() for n, p in params.items() if p.grad is not None})
+    finally:
+        set_msda_impl(model, "auto")
+        model.zero_grad(set_to_none=True)
+    (ld_k, g_k), (ld_p, g_p) = runs["auto"], runs["torch"]
+    bad = [k for k in ld_p if not abs(ld_k[k] - ld_p[k]) <= 1e-4 * abs(ld_p[k]) + 1e-6]
+    worst, worst_name = 0.0, ""
+    for n, gp in g_p.items():
+        rel = float((g_k[n] - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"[train-ab] assembly losses {json.dumps(ld_k)} (plain {json.dumps(ld_p)}, tol 1e-4); "
+        f"{len(g_p)} gradients, worst {worst:.3e} of its tensor's max ({worst_name}; tol 1e-3)")
+    if bad or set(g_k) != set(g_p) or worst > 1e-3:
+        raise AssertionError(f"[assembly] kernel and plain train passes disagree: {bad}, {worst}")
+
+    # train steps
+    opt = create_optimizer(model)
+    train_step = engine.make_assembly_train_step(
+        model, opt, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    labels = label_params(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for i, batch in enumerate(train_batches[1:]):
+        old = {n: p.detach().clone() for n, p in params.items()}
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ld = train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        delta = {n: v - before[n] for n, v in read_counts().items()}
+        vals = {k: float(v) for k, v in ld.items()}
+        moved = {g: any(not torch.equal(p, old[n]) for n, p in params.items() if labels[n] == g)
+                 for g in set(labels.values())}
+        log(f"[train] assembly step {i}: {times[-1] * 1e3:.3f} ms, {BATCH / times[-1]:.1f} "
+            f"frames/s (B={BATCH}, fp32, {card}); losses {json.dumps(vals)}, launches "
+            f"{json.dumps({n: f'+{d}' for n, d in delta.items() if d})}, groups moved {moved}")
+        if delta != expected(TRAIN) or not all(np.isfinite(v) for v in vals.values()) \
+                or not vals["grad_norm"] > 0 or not all(moved.values()):
+            raise AssertionError(f"[assembly] step {i}: launches {delta}, losses {vals}, "
+                                 f"moved {moved}")
+    train = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.median(times[1:]))
+    log(f"[assembly] steady train step {steady * 1e3:.3f} ms ({BATCH / steady:.1f} frames/s, "
+        f"B={BATCH}), peak device memory {peak / 2**30:.3f} GiB allocated ({card})")
+    profile_line("assembly train step", lambda: train_step(train_batches[1]))
+    profile_line("assembly serving batch", lambda: step(serve_batches[1]))
+    del model, opt, train_step, step
+    torch.cuda.empty_cache()
+    log(f"[assembly] phase 22 took {time.perf_counter() - t_phase:.2f} s of wall clock")
+    return serve, train
+
+
+def coco_cli_phase(card):
+    """The CLI's COCO-format route at full width on phase 22's roots, for
+    `--dataset_file AssemblyHands` and `H2O`: an epoch of 2 `--debug` steps,
+    its checkpoint and its eval (every val batch), then `--eval --resume` of
+    the checkpoint, whose scores must equal the epoch's; 12 staged forward
+    launches a batch and 12 + 12 a step, no other kernel."""
+    t_phase = time.perf_counter()
+    val_batches = -(-COCO_IMAGES // BATCH)
+    runs = {}
+    for name in ("AssemblyHands", "H2O"):
+        out = os.path.join(COCO_DIR, name.lower())
+
+        def argv(out_dir, *extra):
+            return ["--dataset_file", name, "--coco_path", os.path.join(COCO_DIR, "data"),
+                    "--output_dir", out_dir, "--batch_size", str(BATCH), "--val_batch_size",
+                    str(BATCH), "--epochs", "1", "--debug", "--num_debug", "2",
+                    "--num_workers", "8", "--seed", str(SEED), *extra]
+
+        got, _ = resumed_cli_runs(f"{name.lower()}-cli", (
+            (f"{name} train epoch", argv(out),
+             expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD + val_batches * MSDA_PER_FORWARD,
+                              "msda_bwd": 2 * MSDA_PER_FORWARD}))),
+            (f"{name} eval --resume", argv(out + "_eval", "--eval", "--resume",
+                                           os.path.join(out, "0")),
+             expected(SERVE, val_batches))))
+        runs.update(got)
+    log(f"[coco-cli] took {time.perf_counter() - t_phase:.2f} s ({card})")
+    return runs
+
+
+def assembly_call_line(timed, btimed, card):
+    """K1's and K3's device ms of one AssemblyHands decoder call (Lq 3
+    against S 1045, B=16, float32) beside their bounds, from phases 3 and 3b."""
+    fwd, bwd = timed["assembly decoder fp32"]["staged"], btimed["assembly decoder fp32"]["staged"]
+    log(f"[assembly] one decoder call at Lq {ASSEMBLY_LQ} (B={BATCH}, fp32): msda_fwd_staged "
+        f"device {ms_or_not(fwd['device_ms'])} ms (events {fwd['ms']:.4f}) against a "
+        f"{fwd['bound_ms']:.4f} ms {fwd['bound_by']} bound, plain {fwd['plain_ms']:.4f} ms; "
+        f"msda_bwd_staged device {ms_or_not(bwd['device_ms'])} ms (events {bwd['ms']:.4f}) "
+        f"against {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}), plain {bwd['plain_ms']:.4f} ms "
+        f"({card})")
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2339,6 +2694,20 @@ def main() -> int:
     temporal_cli_runs = temporal_cli_phase(card)
     log(f"[temporal] phase 20 took {time.perf_counter() - t0:.2f} s of wall clock")
 
+    # 21. arctic_sf on Swin-L, fp32 and bf16, and the CLI with --backbone swin_L_384_22k
+    t0 = time.perf_counter()
+    swin_counts = swin_phase(world, batches, train_batches, card)
+    swin_cli_runs = swin_cli_phase(card)
+    log(f"[swin] phase 21 with its CLI runs took {time.perf_counter() - t0:.2f} s of wall clock")
+
+    # 22. AssemblyHands at full width, and the CLI's COCO-format route
+    t0 = time.perf_counter()
+    assembly_call_line(timed, btimed, card)
+    assembly_counts = assembly_phase(card)
+    coco_cli_runs = coco_cli_phase(card)
+    log(f"[assembly] phase 22 with its CLI runs took {time.perf_counter() - t0:.2f} s of wall "
+        f"clock")
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -2361,7 +2730,8 @@ def main() -> int:
         "option runs included); *_enc_lite_call: one float32 call of enc_lite's low-resolution-"
         "only layers (Lq 261 against S 1045, B=16); *_dn_decoder_call(_bf16): one decoder call "
         "of the DINO train step (Lq 498: 300 + 198 CDN queries, B=16); *_temporal_call: one "
-        "float32 encoder call of the temporal train step (its 32 window frames, Lq = S = 1045)")
+        "float32 encoder call of the temporal train step (its 32 window frames, Lq = S = 1045); "
+        "*_assembly_call: one float32 decoder call of AssemblyDETR (Lq 3 against S 1045, B=16)")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -2401,12 +2771,21 @@ def main() -> int:
                 "cli_dino_eval": dino_cli_runs["dino eval --resume"][name],
                 **{path: n[name] for path, n in temporal_counts.items()},
                 **{f"cli_temporal_{tag.replace(' ', '_')}": n[name]
-                   for tag, n in temporal_cli_runs.items()}}
+                   for tag, n in temporal_cli_runs.items()},
+                **{f"serve_{tag.replace(' ', '_')}": n[0][name] for tag, n in swin_counts.items()},
+                **{f"train_{tag.replace(' ', '_')}": n[1][name] for tag, n in swin_counts.items()},
+                "cli_swin_train": swin_cli_runs["swin train epoch"][name],
+                "cli_swin_eval": swin_cli_runs["swin eval --resume"][name],
+                "serve_assembly": assembly_counts[0][name],
+                "train_assembly": assembly_counts[1][name],
+                **{f"cli_{tag.split()[0].lower()}_{'train' if 'train' in tag else 'eval'}": n[name]
+                   for tag, n in coco_cli_runs.items()}}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
         lite = timed_["enc_lite fp32"][kind]  # one enc_lite low-resolution-only call
         window = timed_["temporal encoder fp32"][kind]  # one encoder call of a window step
+        assembly = timed_["assembly decoder fp32"][kind]  # one AssemblyHands decoder call
         dn = {dt: timed_[f"dn decoder {dt}"][kind] for dt in ("fp32", "bf16")}
         return {"name": f"{op}_{kind}", "route": "cuda", "source": f"{src}{op}.cu",
                 "replaces": replaces, "launches": launches, "launches_by_path": by_path(
@@ -2419,6 +2798,8 @@ def main() -> int:
                 **{f"{k}_dn_decoder_call{'' if dt == 'fp32' else '_bf16'}": dn[dt][k]
                    for dt in dn for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
                 **{f"{k}_temporal_call": window[k]
+                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                **{f"{k}_assembly_call": assembly[k]
                    for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
 
     def fac_row(op, kind, key, launches, replaces):

@@ -28,6 +28,12 @@ TINY = ["--device", "cpu", "--enc_layers", "1", "--dec_layers", "2", "--hidden_d
 
 @pytest.fixture
 def bench_env(monkeypatch):
+    from uvhand_tpu_torch.models.backbones import swin
+
+    monkeypatch.setattr(swin.SwinTransformer, "swin_l_384", classmethod(
+        lambda cls, **kw: cls(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 1, 2, 4),
+                              window_size=12, **kw)))
+    monkeypatch.setattr(swin, "SWIN_L_CHANNELS", (32, 64, 128))
     monkeypatch.setenv("UVHAND_BENCH_BATCH", "2")
     monkeypatch.setenv("UVHAND_BENCH_SCAN", "2")
     for knob in ("DTYPE", "ONLY", "INFER", "LITE", "BUDGET_S", "ENC_LITE_HI", "MODEL",
@@ -58,12 +64,13 @@ def test_headline_first_then_every_mode(bench_env, capsys):
         "infer_frames_per_sec_chip_fp32"]
     by = {x["metric"]: x for x in lines}
     swin = by["train_frames_per_sec_chip_swin"]
-    assert "value" not in swin and swin["skipped"].startswith("not ported: ROADMAP Queue 1 item")
+    assert (swin["backbone"], swin["dtype"], swin["batch"]) == ("swin_L_384_22k", "bfloat16", 2)
+    assert head["backbone"] == "resnet50"
     w32 = by["train_frames_per_sec_chip_window32"]
     assert (w32["batch"], w32["window"], w32["dtype"], w32["remat"]) == (32, 32, "bfloat16", True)
     assert w32["split_window"] and w32["temporal_head"] == "none" and not head["remat"]
     timed = [x for x in lines if "value" in x]
-    assert len(timed) == 7 and all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
+    assert len(timed) == 8 and all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
     assert by["infer_frames_per_sec_chip_enc_lite"]["batch"] == 8
     assert by["infer_frames_per_sec_chip_enc_lite"]["enc_lite_hi_every"] == 6
 
@@ -84,8 +91,7 @@ def test_knobs_and_the_budget(bench_env, capsys):
     assert {x["metric"]: x.get("skipped") for x in lines[1:]} == {
         "train_frames_per_sec_chip_fp32": "budget",
         "train_frames_per_sec_chip_window32": "budget",
-        "train_frames_per_sec_chip_swin": "not ported: ROADMAP Queue 1 item 10 (Swin-L "
-                                          "backbone)"}
+        "train_frames_per_sec_chip_swin": "budget"}
 
 
 def test_the_dino_and_convnext_knobs(bench_env, capsys):
@@ -109,12 +115,17 @@ def test_the_dino_and_convnext_knobs(bench_env, capsys):
     timed = [x for x in lines if "value" in x]
     assert [x["metric"] for x in timed] == ["train_frames_per_sec_chip",
                                             "train_frames_per_sec_chip_fp32",
-                                            "train_frames_per_sec_chip_window32"]
-    assert all(x["model"] == "dino" and x["backbone"] == "convnext_xlarge_22k" for x in timed)
+                                            "train_frames_per_sec_chip_window32",
+                                            "train_frames_per_sec_chip_swin"]
+    assert all(x["model"] == "dino" for x in timed)
+    assert [x["backbone"] for x in timed] == ["convnext_xlarge_22k"] * 3 + ["swin_L_384_22k"]
     assert all(math.isfinite(x["value"]) and x["value"] > 0 for x in timed)
-    assert len(calls) == 3 * 3  # every train step (warm-up + 2) of the three modes
+    assert len(calls) == 4 * 3  # every train step (warm-up + 2) of the four modes
     bench_env.setenv("UVHAND_BENCH_BACKBONE", "swin")
-    assert run(capsys)[0]["skipped"] == "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"
+    bench_env.setenv("UVHAND_BENCH_DTYPE", "bfloat16")  # the headline alone
+    (head,) = run(capsys)
+    assert (head["metric"], head["backbone"]) == ("train_frames_per_sec_chip", "swin_L_384_22k")
+    assert math.isfinite(head["value"]) and head["value"] > 0
 
 
 def test_the_window_knobs(bench_env, capsys):

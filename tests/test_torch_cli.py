@@ -8,7 +8,9 @@
     tolerantly; `list_checkpoints` sorts by epoch; a resumed schedule
     continues at its step's learning rate;
   - every option the port does not run exits with a message naming its
-    ROADMAP item (Swin-L still does); the temporal routes run: `--method
+    ROADMAP item (the Swin-L backbone and the COCO-format datasets run:
+    `tests/test_torch_swin.py`, `tests/test_torch_coco.py`); the temporal
+    routes run: `--method
     arctic_lstm` with each `--temporal_head` trains, evaluates and resumes,
     `--train_smoothnet` writes the smoother and `--smooth_resume` resumes
     it apart from the base model, and a temporal head without windows exits
@@ -179,9 +181,7 @@ UNPORTED = {
     "extraction_mode": ["--extraction_mode", "submit_pose"],
     "visualization": ["--visualization"], "native_loader": ["--native_loader", "fast"],
     "feature_type": ["--feature_type", "local_fm"],
-    "backbone": ["--backbone", "swin_L"], "mp": ["--mp", "2"],
-    "assembly": ["--dataset_file", "AssemblyHands"], "h2o": ["--dataset_file", "H2O"],
-    "fpha": ["--dataset_file", "FPHA"],
+    "mp": ["--mp", "2"],
 }
 
 
@@ -191,13 +191,6 @@ def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path):
             *UNPORTED[name]]
     with pytest.raises(SystemExit, match=r"not ported yet: .*\(ROADMAP Queue 1 item"):
         main(get_args_parser().parse_args(argv))
-
-
-def test_swin_is_still_refused(tmp_path):
-    with pytest.raises(SystemExit, match=r"--backbone other than resnet50 and "
-                       r"convnext_xlarge_22k \(ROADMAP Queue 1 item 10"):
-        main(get_args_parser().parse_args(["--output_dir", str(tmp_path), "--backbone",
-                                           "swin_L_384_22k"]))
 
 
 @pytest.mark.parametrize("flags", [["--use_dn"], ["--modelname", "dino"],

@@ -28,7 +28,14 @@ through the staged forward and backward kernels once each, the forward
 bit for bit in float32. A temporal train step (a 2+2-layer model with each
 temporal head, a window batch with centre-frame targets) launches the
 staged kernels 4 + 4 times, and a SmoothNet step behind it, frozen, 4
-forward and no backward.
+forward and no backward. The AssemblyHands decoder's call (Lq 3 against the
+1045 tokens of a 224x224 image, B = 16) goes through the staged kernels
+like the DINO one. A 2+2-layer arctic_sf on a narrow Swin (the Swin-L
+patched down to embed 32, depths 2/2/2/2, as `tests/test_torch_swin.py`
+does) and a 1+2-layer `AssemblyDETR`, float32 at 128x128: their eval
+outputs through the kernels within 1e-4 of those through the plain
+versions, and a train step launches 4 + 4 (Swin) or 3 + 3 (AssemblyHands)
+staged kernels and no general one.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -1035,3 +1042,119 @@ def test_temporal_train_and_smoothnet_steps_launch_the_staged_kernels(cuda, kind
     assert torch.isfinite(ld["total"])
     assert all(torch.equal(v, base[k]) for k, v in model.state_dict().items())
     assert all(not torch.equal(p, old[n]) for n, p in smoother.named_parameters())
+
+
+#: the AssemblyHands decoder's cross-attention call: 3 queries (left, right,
+#: object), B = 16, at the levels of a 224x224 image
+ASSEMBLY_DECODER = (16, 3, 8, 32, 4, ((28, 28), (14, 14), (7, 7), (4, 4)), (-0.5, 1.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_assembly_decoder_call_through_the_staged_kernels(cuda, dtype, monkeypatch):
+    """The Lq-3 decoder call goes through the staged forward and backward
+    kernels once each, the forward bit for bit in float32, the backward
+    within TOL of the plain version."""
+    monkeypatch.setitem(CASES, "assembly_decoder", ASSEMBLY_DECODER)
+    value, shapes, loc, attn, gen = make_inputs("assembly_decoder", dtype, cuda)
+    b, lq, m, d = ASSEMBLY_DECODER[:4]
+    grad = torch.randn(b, lq, m * d, generator=gen, device=cuda).to(dtype)
+    counts = (msda_cuda.FWD_STAGED, msda_cuda.BWD_STAGED, msda_cuda.FWD_GENERAL,
+              msda_cuda.BWD_GENERAL)
+    before = [c.launches for c in counts]
+    v, lo, at = (x.clone().requires_grad_() for x in (value, loc.float(), attn))
+    out = ms_deform_attn(v, shapes, lo, at)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [1, 1, 0, 0]
+    ref = ms_deform_attn_torch(value, shapes, loc, attn)
+    if dtype == torch.float32:
+        assert torch.equal(out.detach(), ref)
+    else:
+        assert_matches("out", out.detach(), ref, TOL[dtype])
+    ref_grads = ms_deform_attn_torch_backward(value, shapes, loc, attn, grad)
+    for name, o, r in zip(("dvalue", "dloc", "dattn"), (v.grad, lo.grad, at.grad), ref_grads):
+        assert_matches(name, o, r, TOL[dtype])
+
+
+def _set_impl(model, impl):
+    from uvhand_tpu_torch.ops.msda import MSDeformAttn
+
+    for mod in model.modules():
+        if isinstance(mod, MSDeformAttn):
+            mod.impl = impl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kind", ["swin", "assembly"])
+def test_swin_and_assembly_models_through_the_staged_kernels(cuda, model_kind, monkeypatch,
+                                                            tmp_path):
+    import numpy as np
+
+    from uvhand_tpu_torch import engine
+    from uvhand_tpu_torch.data import arctic
+    from uvhand_tpu_torch.geometry import mano, objects
+    from uvhand_tpu_torch.models.assembly import AssemblyDETR
+    from uvhand_tpu_torch.models.backbones import swin
+    from uvhand_tpu_torch.models.detr import UVHandDETR
+    from uvhand_tpu_torch.train.state import create_optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(-2, 2, (2, 128, 128, 3)).astype(np.float32)).to(cuda)
+    if model_kind == "swin":
+        monkeypatch.setattr(swin.SwinTransformer, "swin_l_384", classmethod(
+            lambda cls, **kw: cls(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8),
+                                  window_size=12, **kw)))
+        monkeypatch.setattr(swin, "SWIN_L_CHANNELS", (64, 128, 256))
+        model = UVHandDETR(num_queries=12, num_encoder_layers=2, num_decoder_layers=2,
+                           d_model=64, n_heads=4, dim_feedforward=128,
+                           backbone="swin_L_384_22k", generator=gen, device=cuda)
+        per_pass = 4
+    else:
+        model = AssemblyDETR(d_model=64, num_encoder_layers=1, num_decoder_layers=2,
+                             generator=gen, device=cuda)
+        per_pass = 3
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("sampling_offsets.weight", "attention_weights.weight")):
+                p.normal_(0.0, 0.05)
+    counts = (msda_cuda.FWD_STAGED, msda_cuda.BWD_STAGED, msda_cuda.FWD_GENERAL,
+              msda_cuda.BWD_GENERAL)
+    outs = {}
+    for impl in ("auto", "torch"):
+        _set_impl(model, impl)
+        before = [c.launches for c in counts]
+        with torch.no_grad():
+            outs[impl] = model(images)["stacked"]
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counts, before)] == (
+            [per_pass, 0, 0, 0] if impl == "auto" else [0, 0, 0, 0])
+    for k, ref in outs["torch"].items():
+        if isinstance(ref, torch.Tensor):
+            err = float((outs["auto"][k] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            assert err <= 1e-4, (k, err)
+    _set_impl(model, "auto")
+    if model_kind == "swin":
+        bank = objects.synthetic_object_bank(2, device="cpu")
+        root = str(tmp_path / "arctic")
+        arctic.make_synthetic_root(root, num_seqs=1, frames=2, views=1, obj_bank=bank,
+                                   image_hw=(150, 210))
+        ds = arctic.ArcticDataset(root, "p1", "train", kp3d_cano=bank.kp_bottom.numpy(),
+                                  img_res=128)
+        batch = arctic.collate([ds[0], ds[1]])
+        world = (mano.synthetic_mano(0, True, device=cuda),
+                 mano.synthetic_mano(1, False, device=cuda),
+                 objects.synthetic_object_bank(2, device=cuda))
+        step = engine.make_fused_train_step(model, *world, create_optimizer(model),
+                                            img_res=128.0, device=cuda)
+    else:
+        step = engine.make_assembly_train_step(model, create_optimizer(model), device=cuda)
+        batch = {"images": images, "labels": np.array([[9, 10, 3], [9, 10, 5]], np.int32),
+                 "keypoints63": rng.uniform(size=(2, 3, 63)).astype(np.float32),
+                 "target_valid": np.ones((2, 3), bool)}
+    before = [c.launches for c in counts]
+    ld = step(batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counts, before)] == [per_pass, per_pass, 0, 0]
+    assert all(bool(torch.isfinite(v)) for v in ld.values()) and float(ld["grad_norm"]) > 0

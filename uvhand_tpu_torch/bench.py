@@ -25,8 +25,9 @@ train step, the enc_lite train step and serving at 4x the batch
 (hi_every UVHAND_BENCH_ENC_LITE_HI, default 6), bf16 serving, the window-32
 temporal train step (`train_frames_per_sec_chip_window32`: one window of 32
 frames from `TempoTrainDataset` on a synthetic root of max(32 + 22, B + 1)
-frames, bf16, remat, frames/s counting all 32 frames), the Swin-L train line
-(not ported: it names its ROADMAP item and times nothing), fp32 serving.
+frames, bf16, remat, frames/s counting all 32 frames), the bf16 train step
+of the same model on the Swin-L backbone (`train_frames_per_sec_chip_swin`,
+the reference's `swin_L_384_22k`), fp32 serving.
 
 A time is the host clock over UVHAND_BENCH_SCAN (default 120) steps or
 batches after a warm-up one (which builds the kernels and the
@@ -37,10 +38,9 @@ UVHAND_BENCH_ONLY=infer (serving alone), UVHAND_BENCH_INFER=0 and
 UVHAND_BENCH_LITE=0 (drop those lines), UVHAND_BENCH_MODEL=dino (the DINO
 variant: contrastive denoising fed every train step, look-forward-twice;
 its decoder runs the 300 matching and 198 dn queries) and
-UVHAND_BENCH_BACKBONE=convnext (ConvNeXt-XL; `swin` names its ROADMAP item
-and times nothing), UVHAND_BENCH_WINDOW=T (every line on one temporal train
-batch of max(B // T, 1) windows of T frames centred on frames of a
-synthetic root, `collate_tempo_train`, in place of the B frames; no window32
+UVHAND_BENCH_BACKBONE=convnext|swin (ConvNeXt-XL, Swin-L),
+UVHAND_BENCH_WINDOW=T (every line on one temporal train batch of
+max(B // T, 1) windows of T frames centred on frames of a synthetic root, `collate_tempo_train`, in place of the B frames; no window32
 line then), UVHAND_BENCH_SPLIT=0 (the window batches keep their centre
 frames' targets only, `center_index`; the serving lines, which need every
 frame's camera, are skipped then), UVHAND_BENCH_TEMPORAL=lstm|vivit (the
@@ -61,6 +61,7 @@ It runs on the card and raises where there is none, unless given
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import json
 import os
@@ -93,7 +94,8 @@ def get_args_parser():
     return p
 
 
-BACKBONES = {"": "resnet50", "resnet50": "resnet50", "convnext": "convnext_xlarge_22k"}
+BACKBONES = {"": "resnet50", "resnet50": "resnet50", "convnext": "convnext_xlarge_22k",
+             "swin": "swin_L_384_22k"}
 
 
 def first_batch(args, batch_size: int, window: int = 0, split_window: bool = True) -> dict:
@@ -239,11 +241,6 @@ def main(argv=None) -> None:
     model_name = env("UVHAND_BENCH_MODEL", "") or "deformable_detr"
     if model_name not in ("deformable_detr", "dino"):
         raise ValueError(f"UVHAND_BENCH_MODEL={model_name!r}: deformable_detr or dino")
-    if env("UVHAND_BENCH_BACKBONE", "") == "swin":
-        _emit({"metric": "train_frames_per_sec_chip", "model": model_name,
-               "backbone": "swin_L_384_22k",
-               "skipped": "not ported: ROADMAP Queue 1 item 10 (Swin-L backbone)"})
-        return
     backbone = BACKBONES[env("UVHAND_BENCH_BACKBONE", "")]
     window = int(env("UVHAND_BENCH_WINDOW", "0"))
     temporal = env("UVHAND_BENCH_TEMPORAL", "") or "none"
@@ -295,8 +292,10 @@ def main(argv=None) -> None:
             return w32.train(torch.bfloat16)
 
         extras.append(("train_frames_per_sec_chip_window32", window32, w32_meta))
-    extras.append(("train_frames_per_sec_chip_swin", "ROADMAP Queue 1 item 10 (Swin-L backbone)",
-                   {"mode": "swin_L_384_22k"}))
+    swin = copy.copy(bench)
+    swin.backbone = "swin_L_384_22k"
+    extras.append(("train_frames_per_sec_chip_swin", lambda: swin.train(torch.bfloat16),
+                   {"dtype": "bfloat16", "mode": "swin_L_384_22k", "backbone": swin.backbone}))
     if infer:
         extras.append(("infer_frames_per_sec_chip_fp32", lambda: bench.infer(torch.float32),
                        {"dtype": "float32"}))
@@ -304,9 +303,6 @@ def main(argv=None) -> None:
         if metric.startswith("infer_") and not bench.serves:
             _emit({"metric": metric, "skipped": "the window batch keeps its centre frames' "
                    "cameras only (UVHAND_BENCH_SPLIT=0)"})
-            continue
-        if isinstance(fn, str):
-            _emit({"metric": metric, "skipped": f"not ported: {fn}", **meta})
             continue
         if time.monotonic() - t_start >= budget_s:
             _emit({"metric": metric, "skipped": "budget",

@@ -15,10 +15,20 @@ learned`, `--no_aux_loss`, `--enc_lite` / `--enc_lite_hi_every`, `--remat`,
 implies `--bf16`), `--sgd`, the DINO variant (`--modelname dino`, with
 contrastive denoising and look-forward-twice; `--use_dn` for the denoising
 queries alone; `--dn_number`, `--label_noise_scale`, `--box_noise_scale`)
-and the ConvNeXt-XL backbone (`--backbone convnext_xlarge_22k`).
-`--two_stage` without `--with_box_refine` (but for dino), and dino or
-`--use_dn` without `--two_stage`, are models the JAX package cannot build
-or train either: they raise a ValueError.
+and the Swin-L and ConvNeXt-XL backbones (`--backbone swin_L_384_22k`,
+`--backbone convnext_xlarge_22k`). `--two_stage` without
+`--with_box_refine` (but for dino), and dino or `--use_dn` without
+`--two_stage`, are models the JAX package cannot build or train either:
+they raise a ValueError.
+
+`--dataset_file AssemblyHands|H2O|FPHA` runs the COCO-format route
+(`run_coco`): `AssemblyDETR` on `CocoHandsDataset` from
+`{coco_path}/{dataset_file}`, trained with a checkpoint and an eval each
+epoch, or evaluated with `--eval` (`--resume` a checkpoint); `--debug`,
+`--num_debug` and `--cache_mode` apply. As in the JAX CLI, the model
+takes only `--hidden_dim`, `--enc_layers`, `--dec_layers` and
+`--num_feature_levels`, and the optimizer only `--lr`, `--weight_decay`
+and `--clip_max_norm`.
 
 The temporal routes run too. `--method arctic_lstm --window_size T`
 trains on a window of T frames centred on each frame (`TempoTrainDataset`,
@@ -258,12 +268,10 @@ UNPORTED = (
      "item 4 (the native image path)"),
     (lambda a: a.feature_type != "origin", "--feature_type global_fm|local_fm",
      "item 12 (cli/extract_features.py, which writes the features)"),
-    (lambda a: a.backbone not in ("resnet50", "convnext_xlarge_22k"),
-     "--backbone other than resnet50 and convnext_xlarge_22k", "item 10 (Swin-L)"),
     (lambda a: a.mp > 1, "--mp > 1", "item 6b (model parallelism)"),
-    (lambda a: a.dataset_file in ("AssemblyHands", "H2O", "FPHA"),
-     "the AssemblyHands/H2O/FPHA datasets", "item 11 (AssemblyHands / COCO family)"),
 )
+#: the datasets of the COCO-format route (`run_coco`)
+COCO_DATASETS = ("AssemblyHands", "H2O", "FPHA")
 
 
 def check_ported(args) -> None:
@@ -309,12 +317,23 @@ def build_world(args, device):
 
 
 def build_model(args, device):
-    """The arctic_sf model of `args` on `device`, its weights drawn from a
-    torch.Generator seeded with `--seed`. `--bf16_params` implies the bf16
-    compute mode, and `--modelname dino` the denoising queries, with
-    look-forward-twice wherever they are on, as in the JAX CLI."""
+    """The model of `args` on `device`, its weights drawn from a
+    torch.Generator seeded with `--seed`: for the COCO-format datasets the
+    `AssemblyDETR` (12 classes, of the flags only `--hidden_dim`,
+    `--enc_layers`, `--dec_layers` and `--num_feature_levels`, as the JAX
+    CLI builds it), else arctic_sf's `UVHandDETR`. `--bf16_params` implies
+    the bf16 compute mode, and `--modelname dino` the denoising queries,
+    with look-forward-twice wherever they are on, as in the JAX CLI."""
     from ..models.detr import UVHandDETR
 
+    if args.dataset_file in COCO_DATASETS:
+        from ..models.assembly import AssemblyDETR
+
+        return AssemblyDETR(num_classes=12, d_model=args.hidden_dim,
+                            num_encoder_layers=args.enc_layers,
+                            num_decoder_layers=args.dec_layers,
+                            num_feature_levels=args.num_feature_levels,
+                            generator=torch.Generator().manual_seed(args.seed), device=device)
     use_dn = args.modelname == "dino" or args.use_dn
     return UVHandDETR(
         use_dn=use_dn, dino_variant=args.modelname == "dino", dn_number=args.dn_number,
@@ -453,6 +472,8 @@ def main(args) -> dict:
     check_temporal(args)
 
     np.random.seed(args.seed)
+    if args.dataset_file in COCO_DATASETS:
+        return run_coco(args, device)
     mano_r, mano_l, bank = build_world(args, device)
     world = (mano_r, mano_l, bank)
     model = build_model(args, device)
@@ -581,6 +602,89 @@ def main(args) -> dict:
                   + json.dumps(scores))
             result["epochs"].append({"epoch": epoch, "stats": stats, "scores": scores})
         wb.finish()
+        return result
+    finally:
+        dl_train.close()
+        dl_val.close()
+
+
+def run_coco(args, device) -> dict:
+    """The AssemblyHands / H2O / FPHA route, as the JAX CLI's `run_coco`
+    runs it (the reference's COCO-format build and `eval_coco`):
+    `CocoHandsDataset` from `{coco_path}/{dataset_file}` (train split with
+    the colour jitter and rotation, `--cache_mode`), `AssemblyDETR`, and
+    either `--eval` (the scores of the val split, every batch, each GT
+    slot predicted by the query most probable for its label) or training:
+    each epoch its steps (`--debug`: `--num_debug` of them), a checkpoint
+    and the eval. `--resume` restores a checkpoint directory (parameters,
+    optimizer and step) or a reference `.pth` (parameters). The optimizer
+    is AdamW at `--lr` and `--weight_decay` with the backbone at 2e-5 and
+    the sampling offsets at 0.1 x lr, with no schedule, whatever
+    `--lr_backbone`, `--lr_linear_proj_mult` or `--sgd` say (the JAX CLI
+    takes `create_train_state`'s defaults there). Over several processes
+    each takes its share of every batch, the step's loss is the global
+    batch's, and rank 0 writes. Returns {"epochs": [{"epoch", "stats",
+    "scores"}]} or {"scores": [scores]}, with "timing"."""
+    from .. import engine
+    from ..data.coco_hands import CocoHandsDataset, collate
+    from ..data.loader import DataLoader
+    from ..train import checkpoint as ckpt
+    from ..train import mesh
+    from ..train.state import create_optimizer
+    from ..utils.logging import save_results
+
+    rank, world_size = mesh.rank_and_world()
+    model = build_model(args, device)
+    mesh.broadcast_params(model)  # seeded alike everywhere; rank 0's are the run's
+    print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M")
+    root = os.path.join(args.coco_path, args.dataset_file)
+    ds_train = CocoHandsDataset(root, args.trainsplit, img_res=args.img_res,
+                                aug=not args.make_pickle, seed=args.seed,
+                                cache_mode=args.cache_mode)
+    ds_val = CocoHandsDataset(root, args.valsplit, img_res=args.img_res,
+                              cache_mode=args.cache_mode)
+    loader = dict(collate_fn=collate, num_workers=args.num_workers,
+                  workers_mode=args.workers_mode, rank=rank, world_size=world_size)
+    dl_train = DataLoader(ds_train, args.batch_size, seed=args.seed, **loader)
+    dl_val = DataLoader(ds_val, args.val_batch_size, shuffle=False, drop_last=False, **loader)
+    optimizer = create_optimizer(model, lr=args.lr, weight_decay=args.weight_decay)
+    steps = 0
+    if args.resume:
+        if args.resume.endswith(".pth"):
+            ckpt.load_torch_pth(args.resume, model, args.not_use_params)
+        else:
+            steps = ckpt.load_checkpoint(
+                args.resume, model, optimizer, args.not_use_params,
+                load_opt=not (args.not_use_optim_ckpt or args.not_use_lr_scheduler_ckpt))["step"]
+        print(f"resumed from {args.resume}")
+    train_step = engine.make_assembly_train_step(
+        model, optimizer, clip_max_norm=args.clip_max_norm,
+        generator=torch.Generator(device=device).manual_seed(mesh.process_seed(args.seed)),
+        device=device, process_group=torch.distributed.group.WORLD if mesh.active() else None)
+    eval_step = engine.make_assembly_eval_step(model, device=device)
+    timing: dict = {}
+    result: dict = {"timing": timing}
+    try:
+        if args.eval:
+            scores = engine.evaluate_assembly(eval_step, dl_val, args.img_res, timing=timing)
+            print(json.dumps(scores, indent=2))
+            save_results(args.output_dir, -1, score_dict=scores)
+            result["scores"] = [scores]
+            return result
+        result["epochs"] = []
+        for epoch in range(args.start_epoch, args.epochs):
+            t0 = time.time()
+            stats = engine.train_one_epoch(train_step, dl_train, epoch,
+                                           max_steps=args.num_debug if args.debug else None,
+                                           timing=timing)
+            steps += min(len(dl_train), args.num_debug) if args.debug else len(dl_train)
+            ckpt.save_checkpoint(args.output_dir, epoch, model, optimizer, step=steps,
+                                 extra={"epoch": epoch})
+            scores = engine.evaluate_assembly(eval_step, dl_val, args.img_res, timing=timing)
+            save_results(args.output_dir, epoch, loss_dict=stats, score_dict=scores)
+            print(f"epoch {epoch}: {time.time() - t0:.1f}s train_loss={stats.get('loss'):.4f} "
+                  + json.dumps(scores))
+            result["epochs"].append({"epoch": epoch, "stats": stats, "scores": scores})
         return result
     finally:
         dl_train.close()

@@ -13,6 +13,9 @@ Port of `uvhand_tpu/engine.py`:
     frames (`center_index`, `select_output_frames`);
   - sequence metrics (`make_sequence_eval_step`, `evaluate_sequences`): ACC
     and MDev over each (subject, sequence, view) in time order.
+  - the AssemblyHands / H2O / FPHA model (`make_assembly_train_step`,
+    `make_assembly_eval_step`, `evaluate_assembly`): the JAX CLI's
+    `run_coco` steps, on COCO-format batches (`COCO_KEYS`).
 The loops take a `data.loader.DataLoader` (batches copied to the card by
 `device_prefetch`) or any iterable of in-memory batches. Over several
 processes (`train.launch.init_multihost`) each holds a share of the global
@@ -404,3 +407,116 @@ def evaluate_sequences(seq_step, dataset, batch_size: int = 16,
     out = {k: float(np.nanmean(np.concatenate(v))) for k, v in accs.items() if v}
     out["mdev/h"] = float(np.nanmean(np.concatenate(mdevs))) if mdevs else float("nan")
     return out
+
+
+# ------------------------------------------------ AssemblyHands / H2O / FPHA
+
+#: the keys of a COCO-format batch (`data/coco_hands.py`)
+COCO_KEYS = ("images", "labels", "keypoints63", "target_valid")
+
+
+def make_assembly_train_step(model, optimizer, clip_max_norm: float = 0.1,
+                             generator: Optional[torch.Generator] = None, device=None,
+                             process_group=None):
+    """-> step(batch) -> loss dict (0-d tensors, with `grad_norm`): one
+    update of an `AssemblyDETR`, as the JAX CLI's `run_coco` takes it: the
+    model in train mode (dropout from `generator`, a fresh one seeded 0 when
+    none is given), `assembly_criterion` with its defaults (no per-joint
+    mask), the gradient, the global-norm clip and the optimizer's step.
+    Every parameter gets a gradient, zero where the loss does not reach it.
+    With a `process_group`, `batch` is this process's share of the global
+    batch: `num_boxes` is the global batch's, each process's backward gives
+    its share of the gradient, the shares are summed, and the loss terms
+    are the global batch's (`cardinality_error` the mean over processes).
+    The stages are profiler ranges named in `TRAIN_STAGES` (no `targets`)."""
+    from .models.assembly import assembly_criterion
+
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch):
+        b = to_device(batch, device, COCO_KEYS)
+        model.train()
+        optimizer.zero_grad(set_to_none=False)
+        num_boxes = None
+        if process_group is not None:
+            num_boxes = b["target_valid"].sum().float()
+            torch.distributed.all_reduce(num_boxes, group=process_group)
+        with record_function("forward"):
+            out = model(b["images"], generator)
+        with record_function("criterion"):
+            total, loss_dict = assembly_criterion(out, b["labels"], b["keypoints63"],
+                                                  b["target_valid"], num_boxes=num_boxes)
+        with record_function("backward"):
+            total.backward()
+        with record_function("clip+optimizer"):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if process_group is not None:
+                all_reduce_grads(grads, process_group)
+            norm = global_norm(grads)
+            if clip_max_norm > 0:
+                clip_by_global_norm_(grads, clip_max_norm, norm)
+            optimizer.step()
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        if process_group is not None:
+            names = sorted(loss_dict)
+            terms = torch.stack([loss_dict[k] for k in names])
+            torch.distributed.all_reduce(terms, group=process_group)
+            loss_dict = dict(zip(names, terms.unbind()))
+            loss_dict["cardinality_error"] = (loss_dict["cardinality_error"]
+                                              / torch.distributed.get_world_size(process_group))
+        loss_dict["grad_norm"] = norm
+        return loss_dict
+
+    step.device = device
+    return step
+
+
+def make_assembly_eval_step(model, device=None):
+    """-> step(batch) -> {"pred", "gt", "valid"}: for each GT slot the
+    keypoints (B, 3, 63) of the last layer's query most probable for the
+    slot's label (`models/assembly.py::select_slots`), as the JAX CLI's
+    `run_coco` evaluates, beside the slot's GT and validity."""
+    from .models.assembly import select_slots
+
+    device = resolve_device(device)
+
+    @torch.inference_mode()
+    def step(batch):
+        b = to_device(batch, device, COCO_KEYS)
+        model.eval()
+        st = model(b["images"])["stacked"]
+        return {"pred": select_slots(st["pred_logits"][-1], st["pred_keypoints"][-1],
+                                     b["labels"]),
+                "gt": b["keypoints63"], "valid": b["target_valid"]}
+
+    step.device = device
+    return step
+
+
+def evaluate_assembly(eval_step, loader: Iterable, img_res: int,
+                      max_steps: Optional[int] = None,
+                      timing: Optional[dict] = None) -> Dict[str, float]:
+    """`assembly_keypoint_metrics` (pixel MPJPE in uv at `img_res` x
+    `img_res`, depth MAE) over the valid slots of every batch of `loader`;
+    over several processes the rows of every process are gathered first.
+    `timing` gets each batch's `batch_ms`, as `evaluate`'s."""
+    from .evaluation.coco_eval import assembly_keypoint_metrics
+
+    parts: Dict[str, list] = {}
+    for i, batch in enumerate(_batches(eval_step, loader)):
+        t0 = time.perf_counter()
+        for k, v in eval_step(batch).items():
+            parts.setdefault(k, []).append(v.cpu().numpy())
+        if timing is not None:
+            timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
+        if max_steps is not None and i + 1 >= max_steps:
+            break
+    rows = all_gather_rows({k: np.concatenate(v) for k, v in parts.items()})
+    return assembly_keypoint_metrics(rows["pred"], rows["gt"], rows["valid"],
+                                     img_size=(img_res, img_res))

@@ -36,7 +36,7 @@ CONVNEXT_XL_DIMS = (256, 512, 1024, 2048)
 OUT_INDICES = (1, 2, 3)
 
 
-def _norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """`norm` over the last axis, statistics in float32, back in x's type."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
                         norm.bias.float(), norm.eps).to(x.dtype)
@@ -47,7 +47,7 @@ class LayerNorm2d(nn.LayerNorm):
     `channels_first` LayerNorm)."""
 
     def forward(self, x):
-        return _norm(self, x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return norm_f32(self, x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class Block(nn.Module):
@@ -63,7 +63,7 @@ class Block(nn.Module):
 
     def forward(self, x, generator: torch.Generator | None = None):
         y = self.dwconv(x).permute(0, 2, 3, 1)  # NHWC
-        y = dense(self.pwconv1, _norm(self.norm, y), y.dtype)
+        y = dense(self.pwconv1, norm_f32(self.norm, y), y.dtype)
         y = dense(self.pwconv2, F.gelu(y, approximate="tanh"), y.dtype)
         y = y * self.gamma.to(y.dtype)
         if self.training and self.drop_path > 0:

@@ -1,8 +1,9 @@
 """UVHand DETR: backbone + deformable transformer + output heads.
 
 Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`, the
-ResNet-50 or ConvNeXt-XL backbone (`backbone="convnext_xlarge_22k"`), the
-DINO variant and the temporal heads:
+ResNet-50, Swin-L (`backbone="swin_L_384_22k"`) or ConvNeXt-XL
+(`backbone="convnext_xlarge_22k"`) backbone, the DINO variant and the
+temporal heads:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
     stride-2 3x3 level from the last backbone map,
   - position encoding: sine (the default) or learned
@@ -72,7 +73,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.msda import MSDeformAttn
-from .backbones import convnext
+from .backbones import convnext, swin
 from .backbones.resnet import RESNET50_CHANNELS, ResNet50
 from .dn import CdnConfig, cdn_attn_mask, prepare_cdn
 from .layers import Conv2d, GroupNorm, Linear
@@ -82,7 +83,7 @@ from .temporal.sequence import BLOCKS as TEMPORAL_HEADS
 from .temporal.sequence import TemporalParamHead
 from .transformer import MLP, DeformableTransformer, keep_mask
 
-BACKBONES = ("resnet50", "convnext_xlarge_22k")
+BACKBONES = ("resnet50", "swin_L_384_22k", "convnext_xlarge_22k")
 
 
 def resize_mask(mask: torch.Tensor, size) -> torch.Tensor:
@@ -164,9 +165,14 @@ class UVHandDETR(nn.Module):
         self.cdn = CdnConfig(dn_number, dn_label_noise_ratio, dn_box_noise_scale)
         # the reference's Joiner(backbone, position_embedding): the learned
         # embedding's parameters sit in its slot 1; the ResNet sits under
-        # slot 0's `.body`, the ConvNeXt in slot 0 itself
+        # slot 0's `.body`, the Swin and the ConvNeXt in slot 0 itself
         if backbone == "resnet50":
             body, channels = _Joiner0(compute_dtype), RESNET50_CHANNELS
+        elif backbone == "swin_L_384_22k":
+            # drop_path_rate 0.2, the JAX module's default, whatever the flags
+            # say; it never runs here (`level_features`)
+            body = swin.SwinTransformer.swin_l_384(dtype=compute_dtype)
+            channels = swin.SWIN_L_CHANNELS
         else:
             body = convnext.ConvNeXt(convnext.CONVNEXT_XL_DEPTHS, convnext.CONVNEXT_XL_DIMS,
                                      dtype=compute_dtype)
@@ -278,7 +284,7 @@ class UVHandDETR(nn.Module):
     @property
     def body(self) -> nn.Module:
         """The backbone network: the ResNet under the Joiner's slot 0, or the
-        ConvNeXt in it."""
+        Swin or the ConvNeXt in it."""
         slot = self.backbone[0]
         return slot.body if isinstance(slot, _Joiner0) else slot
 
@@ -299,7 +305,8 @@ class UVHandDETR(nn.Module):
         """(srcs (B, C, H_l, W_l), masks (B, H_l, W_l), pos (B, H_l, W_l, C))
         for every level, from NHWC images."""
         # the input projections promote the compute-type maps to their
-        # parameters' type, as flax does
+        # parameters' type, as flax does. The JAX model calls its backbone
+        # in eval mode, so the Swin's stochastic depth never runs here
         feats = self.body(images.permute(0, 3, 1, 2))
         B, H, W, _ = images.shape
         if image_mask is None:

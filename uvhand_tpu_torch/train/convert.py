@@ -3,9 +3,10 @@
 `state_dict_from_jax(params)` maps a flax `UVHandDETR` tree
 (`{'params': ...}` of numpy arrays; sine or learned position encoding,
 two-stage with box refinement or single-stage, the DINO variant, `use_dn`,
-the ResNet-50 or ConvNeXt backbone) onto the port's `state_dict`, whose
-names are the upstream reference's state-dict names. It is the inverse of
-the JAX package's `convert_reference_detr` (and, for the ConvNeXt, of its
+the ResNet-50, Swin or ConvNeXt backbone) onto the port's `state_dict`,
+whose names are the upstream reference's state-dict names. It is the
+inverse of the JAX package's `convert_reference_detr` (and, for the Swin
+and the ConvNeXt, of its `convert_swin_checkpoint` and
 `convert_convnext_checkpoint`), and names the leaves those lack as the
 reference does:
 
@@ -13,7 +14,12 @@ reference does:
   backbone/stem_conv, stem_norm    -> backbone.0.downsample_layers.0.{0,1}
   backbone/down{i}_norm, _conv     -> backbone.0.downsample_layers.{i}.{0,1}
   backbone/stage{i}_block{j}/*     -> backbone.0.stages.{i}.{j}.* (ConvNeXt)
-  backbone/out_norm{i}             -> backbone.0.norm{i}
+  backbone/out_norm{i}             -> backbone.0.norm{i} (Swin, ConvNeXt)
+  backbone/patch_embed, patch_norm -> backbone.0.patch_embed.proj, .norm (Swin)
+  backbone/stage{i}_block{j}/norm1, attn/{relative_position_bias_table,
+      qkv, proj}, norm2, fc1, fc2  -> backbone.0.layers.{i}.blocks.{j}.{norm1,
+                                      attn.*, norm2, mlp.fc1, mlp.fc2} (Swin)
+  backbone/merge{i}/norm, reduction -> backbone.0.layers.{i}.downsample.* (Swin)
   pos_embed/{row,col}_embed        -> backbone.1.{row,col}_embed.weight (the
                                       learned embedding in the reference
                                       Joiner's slot 1; the JAX converter has
@@ -46,6 +52,16 @@ DINO variant (a `tgt_embed` leaf), the reference DINO names:
   transformer/enc_out_cls_head     -> transformer.enc_out_class_embed
   transformer/enc_out_(obj_)key_head/layer{j}
                                    -> transformer.enc_out_(obj_)key_embed.layers.{j}
+
+An `AssemblyDETR` tree (`transformer/enc0` present) maps to the
+reference's assembly names: `backbone`, `input_proj{i}` as above,
+`transformer/enc{i}`, `dec{i}` -> `transformer.encoder.layers.{i}`,
+`transformer.decoder.layers.{i}`, `transformer/enc_output(_norm)` ->
+`transformer.enc_output(_norm)`, `transformer/query_embed` ->
+`query_embed.weight`, `transformer/cls{i}` -> `cls_embed.{i}`,
+`transformer/key{i}`, `okey{i}` -> `keypoint_embed.{i}`,
+`obj_keypoint_embed.{i}` (`.layers.{j}`; the tree holds the encoder's
+object head only).
 
 The temporal head's blocks: `in_proj`, `out_proj`, and either the BiLSTM
 (`bilstm/{fwd,bwd}/OptimizedLSTMCell_0`: the input kernels `ii/if/ig/io`
@@ -214,9 +230,32 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         for name in (k for k in bb if k.startswith("out_norm")):
             norm(f"{body}.norm{name[len('out_norm'):]}", bb[name])
 
+    def swin(bb, body="backbone.0"):
+        conv(f"{body}.patch_embed.proj", bb["patch_embed"])
+        norm(f"{body}.patch_embed.norm", bb["patch_norm"])
+        for name in (k for k in bb if k.startswith("stage")):
+            i, j = name[len("stage"):].split("_block")
+            src, dst = bb[name], f"{body}.layers.{i}.blocks.{j}"
+            for n in ("norm1", "norm2"):
+                norm(f"{dst}.{n}", src[n])
+            sd[f"{dst}.attn.relative_position_bias_table"] = _t(
+                src["attn"]["relative_position_bias_table"])
+            linear(f"{dst}.attn.qkv", src["attn"]["qkv"])
+            linear(f"{dst}.attn.proj", src["attn"]["proj"])
+            linear(f"{dst}.mlp.fc1", src["fc1"])
+            linear(f"{dst}.mlp.fc2", src["fc2"])
+        for name in (k for k in bb if k.startswith("merge")):
+            dst = f"{body}.layers.{name[len('merge'):]}.downsample"
+            norm(f"{dst}.norm", bb[name]["norm"])
+            sd[f"{dst}.reduction.weight"] = _t(np.asarray(bb[name]["reduction"]["kernel"]).T)
+        for name in (k for k in bb if k.startswith("out_norm")):
+            norm(f"{body}.norm{name[len('out_norm'):]}", bb[name])
+
     bb = p["backbone"]
     if "stem_conv" in bb:  # the ConvNeXt in the Joiner's slot 0
         convnext(bb)
+    elif "patch_embed" in bb:  # the Swin in the Joiner's slot 0
+        swin(bb)
     else:  # torchvision ResNet-50 under the Joiner's slot 0
         resnet(bb)
     if "label_enc" in p:
@@ -234,17 +273,16 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     t = p["transformer"]
     sd["transformer.level_embed"] = _t(t["level_embed"])
     msda = ("sampling_offsets", "attention_weights", "value_proj", "output_proj")
-    for i in range(_count(t, "encoder_layer")):
-        src, dst = t[f"encoder_layer{i}"], f"transformer.encoder.layers.{i}"
+
+    def encoder_layer(dst, src):
         for lin in msda:
             linear(f"{dst}.self_attn.{lin}", src["self_attn"][lin])
         for n in ("norm1", "norm2"):
             norm(f"{dst}.{n}", src[n])
         for lin in ("linear1", "linear2"):
             linear(f"{dst}.{lin}", src[lin])
-    n_dec = _count(t, "decoder_layer")
-    for i in range(n_dec):
-        src, dst = t[f"decoder_layer{i}"], f"transformer.decoder.layers.{i}"
+
+    def decoder_layer(dst, src):
         for lin in msda:
             linear(f"{dst}.cross_attn.{lin}", src["cross_attn"][lin])
         _mha(sd, f"{dst}.self_attn", src["self_attn"])
@@ -252,6 +290,30 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
             norm(f"{dst}.{n}", src[n])
         for lin in ("linear1", "linear2"):
             linear(f"{dst}.{lin}", src[lin])
+
+    if "enc0" in t:  # the AssemblyHands model
+        for i in range(_count(t, "enc")):
+            encoder_layer(f"transformer.encoder.layers.{i}", t[f"enc{i}"])
+        for i in range(_count(t, "dec")):
+            decoder_layer(f"transformer.decoder.layers.{i}", t[f"dec{i}"])
+        linear("transformer.enc_output", t["enc_output"])
+        norm("transformer.enc_output_norm", t["enc_output_norm"])
+        sd["query_embed.weight"] = _t(t["query_embed"])
+        for i in range(_count(t, "cls")):
+            linear(f"cls_embed.{i}", t[f"cls{i}"])
+        # (the object heads of the decoder layers are never called: the
+        # JAX tree holds the encoder's, okey{n_dec}, alone)
+        for src, dst in (("key", "keypoint_embed"), ("okey", "obj_keypoint_embed")):
+            for name in (k for k in t if k.startswith(src) and k[len(src):].isdigit()):
+                for j in range(3):
+                    linear(f"{dst}.{name[len(src):]}.layers.{j}", t[name][f"layer{j}"])
+        return sd
+
+    for i in range(_count(t, "encoder_layer")):
+        encoder_layer(f"transformer.encoder.layers.{i}", t[f"encoder_layer{i}"])
+    n_dec = _count(t, "decoder_layer")
+    for i in range(n_dec):
+        decoder_layer(f"transformer.decoder.layers.{i}", t[f"decoder_layer{i}"])
 
     two_stage = "enc_output" in t
     dino = "tgt_embed" in t

@@ -37,7 +37,10 @@ def label_params(
 ) -> Dict[str, str]:
     """Parameter name -> 'backbone' | 'linear_proj' | 'general', matched on
     the name in that order. Every parameter gets a label, the backbone's
-    frozen-BN tensors too, as every leaf does in the JAX package. The
+    frozen-BN tensors too, as every leaf does in the JAX package; the Swin's
+    and the ConvNeXt's, under `backbone.0.*`, are the backbone's, as the JAX
+    package's keyword labels have them (it has no Swin group of its own),
+    and so is the AssemblyHands model's ResNet. The
     learned position embedding (`backbone.1.*`, the reference Joiner's slot)
     is 'general', as the JAX package's `pos_embed/*` leaves are."""
 
