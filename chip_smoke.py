@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off;
+  1. card: name and power limit (nvidia-smi), torch/CUDA versions, TF32 off,
+     whether the host has what the native image library needs (g++, the
+     OpenCV 4 and libjpeg headers);
   2. build: compiles the kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu,
      csrc/msda_fac_fwd.cu, csrc/msda_fac_bwd.cu, and the research kernels
      csrc/msda_onlyg.cu, csrc/msda_xdot.cu, csrc/probe_lane_slice.cu,
@@ -119,15 +121,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      `--two_stage --with_box_refine --bf16_params --sgd`, each an epoch of
      2 steps (24 + 12 launches a step under remat) and a `--resume` eval
      equal to its in-process one;
-  14. each model and training option at full width: single-stage (learned
-     queries, 2-d references), learned position encoding, no-aux, enc_lite
-     (hi_every 3 and 6: the low-resolution-only layers' calls take 261
-     queries against 1045 tokens, through the staged kernels), remat, bf16
-     parameters with stochastic rounding, SGD: 2 serving batches (12 staged
-     forward launches each) held end to end against the plain MSDA run, 2
-     train steps with exact launches (remat: 24 forward + 12 backward a
-     step; bf16 parameters stay bf16 and finite), and the device's busy
-     share of a profiled batch and step;
+  14. each model and training option at full width, its depth cut to 6
+     encoder and 2 decoder layers: single-stage (learned queries, 2-d
+     references), learned position encoding, no-aux, enc_lite (hi_every 3
+     and 6: the low-resolution-only layers' calls take 261 queries against
+     1045 tokens, through the staged kernels), remat, bf16 parameters with
+     stochastic rounding, SGD: 2 serving batches (8 staged forward launches
+     each) held end to end against the plain MSDA run, 2 train steps with
+     exact launches (remat: 16 forward + 8 backward a step; bf16 parameters
+     stay bf16 and finite), and the device's busy share of a profiled batch
+     and step;
   15. peak device memory of a full-width fp32 train step with and without
      remat at B=16 and B=32;
   16. the CLI as a multi-process user launches it, at world size 1 (one
@@ -196,11 +199,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      memory) and profiled lines; then the CLI with `--dataset_file
      AssemblyHands` and with `H2O`: an epoch of 2 steps, its checkpoint and
      eval, and `--eval --resume` with equal scores.
+  23. the export routes on phase 13's root with its fp32 checkpoint, at
+     full width: the CLI's `--extraction_mode submit_pose` (the ARCTIC
+     submission of the val split, 12 staged forward launches a batch of 16
+     and no other kernel, every file float16 and finite), the same export
+     by `run_extraction` in this process with the kernels and with the
+     plain MSDA versions (values before the float16 cast within 1e-4 of
+     each tensor's max; the CLI's files equal the kernel run's bit for
+     bit), the CLI's `--extract` (the backbone's maps, no MSDA launch) and a
+     `local_fm` model fed the stored maps of 16 frames (3 levels, S = 1029:
+     12 staged launches a batch, outputs within 1e-4 of its plain run's),
+     and `--eval --visualization` (32 frames in batches of 4, a PNG each,
+     the OBJ meshes of the first 4).
   Phases 3 and 3b also time the forward and backward kernels on one
   enc_lite call (Lq 261, S 1045, B=16, float32), on one DINO decoder
   call (Lq 498, float32 and bf16), on one encoder call of the temporal
   train step (B=32 frames, float32) and on one AssemblyHands decoder call
-  (Lq 3, S 1045, B=16, float32) beside their bounds.
+  (Lq 3, S 1045, B=16, float32) beside their bounds; phase 3 also times the
+  forward kernels on one encoder call of the local_fm model (3 levels, Lq =
+  S = 1029, B=16, float32).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}; the
@@ -250,6 +267,8 @@ MSDA_PER_FORWARD = 12  # 6 encoder self-attention + 6 decoder cross-attention
 LEVELS = ((28, 28), (14, 14), (7, 7), (4, 4))
 # enc_lite's low-resolution-only layers: the queries of levels 1.. (S - 28*28)
 ENC_LITE_LQ = sum(h * w for h, w in LEVELS[1:])
+#: a precomputed-feature (local_fm) model's levels: the backbone's 3 maps, no extra level
+LOCAL_FM_LEVELS = LEVELS[:3]
 # the DINO train step's decoder call: 300 matching + 198 CDN queries (dn_number 100)
 DN_LQ = 300 + CdnConfig(100).pad_size
 # the temporal variant's window: a train step runs the model on its 32 frames
@@ -391,6 +410,8 @@ def kernel_phase():
         ("dn decoder bf16", dict(enc, Lq=DN_LQ), (-1.0, 1.0), torch.bfloat16, True),
         ("temporal encoder fp32", dict(enc, B=TEMPORAL_WINDOW), (0.0, 1.0), torch.float32, True),
         ("assembly decoder fp32", dict(enc, Lq=ASSEMBLY_LQ), (-0.5, 1.5), torch.float32, True),
+        ("local_fm encoder fp32", dict(enc, Lq=sum(h * w for h, w in LOCAL_FM_LEVELS),
+                                       shapes=LOCAL_FM_LEVELS), (0.0, 1.0), torch.float32, True),
         ("out-of-range fp32", dec, (-2.0, 3.0), torch.float32, False),
         ("odd D=71 fp32", dict(B=2, Lq=100, M=4, D=71, P=4, shapes=LEVELS[:2]),
          (-0.2, 1.2), torch.float32, False),
@@ -427,7 +448,7 @@ def kernel_phase():
             if dtype == torch.float32:
                 max_err[kind] = max(max_err[kind], err)
         if plan is None and name.startswith(("encoder", "decoder", "enc_lite", "dn decoder",
-                                             "temporal", "assembly")):
+                                             "temporal", "assembly", "local_fm")):
             raise AssertionError(f"arctic_sf's shapes must have a staged plan ({name})")
         if not is_timed:
             continue
@@ -1439,35 +1460,45 @@ def msda_device_ms(kernels):
 #: (tag, UVHandDETR options, train-step options, launches per train step);
 #: no-aux, remat and sgd serve with the default model's forward (phase 6
 #: profiles it)
+#: phase 14 runs each option at full width with the decoder cut to 2 of its 6
+#: layers: a step's host work grows with the decoder layers the criterion
+#: covers, and the whole script must stay well inside its time limit
+OPTION_DEC_LAYERS = 2
+OPTION_PER_FORWARD = 6 + OPTION_DEC_LAYERS
+OPTION_SERVE = staged({"msda_fwd": OPTION_PER_FORWARD})
+OPTION_TRAIN = staged({"msda_fwd": OPTION_PER_FORWARD, "msda_bwd": OPTION_PER_FORWARD})
 OPTIONS = (
-    ("single-stage", dict(two_stage=False, with_box_refine=False), {}, TRAIN),
-    ("learned posenc", dict(position_embedding="learned"), {}, TRAIN),
-    ("no-aux", dict(aux_loss=False), {}, TRAIN),
-    ("enc_lite 3", dict(enc_lite=True, enc_lite_hi_every=3), {}, TRAIN),
-    ("enc_lite 6", dict(enc_lite=True, enc_lite_hi_every=6), {}, TRAIN),
+    ("single-stage", dict(two_stage=False, with_box_refine=False), {}, OPTION_TRAIN),
+    ("learned posenc", dict(position_embedding="learned"), {}, OPTION_TRAIN),
+    ("no-aux", dict(aux_loss=False), {}, OPTION_TRAIN),
+    ("enc_lite 3", dict(enc_lite=True, enc_lite_hi_every=3), {}, OPTION_TRAIN),
+    ("enc_lite 6", dict(enc_lite=True, enc_lite_hi_every=6), {}, OPTION_TRAIN),
     # every layer's forward again in the backward
     ("remat", dict(remat=True), {},
-     staged({"msda_fwd": 2 * MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD})),
-    ("bf16 params", dict(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16), {}, TRAIN),
-    ("sgd", {}, dict(sgd=True), TRAIN),
+     staged({"msda_fwd": 2 * OPTION_PER_FORWARD, "msda_bwd": OPTION_PER_FORWARD})),
+    ("bf16 params", dict(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16), {},
+     OPTION_TRAIN),
+    ("sgd", {}, dict(sgd=True), OPTION_TRAIN),
 )
 OPTION_BATCHES, OPTION_STEPS = 2, 2
 
 
 def options_phase(world, batches, train_batches, card):
     """Phase 14: each model and training option of arctic_sf at full width
-    (B=16, 224x224, 6+6 layers, d=256, 300 queries): 2 serving batches
-    (12 staged forward launches each, enc_lite's low-resolution-only layers
-    included) held end to end against the plain MSDA run of the same model
-    and batch, 2 train steps with exact launches (remat: 24 forward + 12
-    backward a step), and a profiled train step and, where the forward
-    differs from the default's, serving batch (device busy share). Returns
-    {tag: (serving launches, training launches)}."""
+    (B=16, 224x224, d=256, 300 queries), its depth cut to 6 encoder and 2
+    decoder layers: 2 serving batches (8 staged forward launches each,
+    enc_lite's low-resolution-only layers included) held end to end against
+    the plain MSDA run of the same model and batch, 2 train steps with exact
+    launches (remat: 16 forward + 8 backward a step), and a profiled train
+    step and, where the forward differs from the default's, serving batch
+    (device busy share). Returns {tag: (serving launches, training
+    launches)}."""
     t_phase = time.perf_counter()
     counts = {}
     for tag, options, train_options, per_step in OPTIONS:
-        model = build_model(**options)
-        rows, _, serve = main_path_phase(model, world, batches[:OPTION_BATCHES], card, tag)
+        model = build_model(num_decoder_layers=OPTION_DEC_LAYERS, **options)
+        rows, _, serve = main_path_phase(model, world, batches[:OPTION_BATCHES], card, tag,
+                                         OPTION_SERVE)
         e2e_phase(model, world, batches[0], rows[0], tag)
         if tag not in ("no-aux", "remat", "sgd"):
             step = engine.make_eval_step(model, *world, img_res=IMG_RES)
@@ -2580,6 +2611,179 @@ def assembly_call_line(timed, btimed, card):
 # ------------------------------------------------------------ main
 
 
+# ------------------------------------------------- 23. the export routes
+
+EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "export_smoke")
+#: frames `--eval --visualization --debug` draws: --num_debug x --val_batch_size
+VIS_FRAMES = 2 * BATCH
+
+
+def export_phase(card):
+    """Phase 23: the routes that export, on phase 13's root with its fp32
+    checkpoint (out/0), arctic_sf at full width (R50, d=256, 6+6 layers,
+    300 queries), each run with every count set to 0 just before it and
+    read just after:
+      1. the CLI's `--extraction_mode submit_pose --resume out/0`: the val
+         split's ARCTIC submission in batches of 16 per sequence, 12 staged
+         forward launches a batch and no other kernel; every file finite;
+      2. `run_extraction` in this process on the same checkpoint, with the
+         kernels and with the plain MSDA versions: the values before the
+         float16 cast agree within 1e-4 of each tensor's max, and the
+         kernel run's files equal the CLI's bit for bit;
+      3. the CLI's `--extract`: the backbone's maps of the train split, no
+         MSDA launch; then a `local_fm` model (`feature_type="local_fm"`,
+         3 levels: S = 28^2 + 14^2 + 7^2 = 1029) fed the stored maps of 16
+         frames: 12 staged forward launches a batch at the 3-level shape,
+         its outputs equal to its plain MSDA run's within 1e-4, its batch
+         ms;
+      4. the CLI's `--eval --visualization --resume out/0`: 32 frames in
+         batches of 4 (12 launches each), a PNG each and the OBJ meshes of
+         the first 4.
+    Returns {path: launches}."""
+    from uvhand_tpu_torch.cli.extract_features import load_feature_maps
+    from uvhand_tpu_torch.cli.extract_predicts import run_extraction
+    from uvhand_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    data_dir = os.path.join(CLI_DIR, "data")
+    root = os.path.join(data_dir, "arctic")
+    resume = os.path.join(CLI_DIR, "out", "0")
+    parse = cli.get_args_parser().parse_args
+    kp3d = objects.synthetic_object_bank(2, device="cpu").kp_bottom.numpy()
+    ds_val = arctic.ArcticDataset(root, "p1", "val", kp3d_cano=kp3d)
+    per_seq = {}
+    for n in ds_val.imgnames:
+        per_seq[tuple(n.split("/")[-4:-2])] = per_seq.get(tuple(n.split("/")[-4:-2]), 0) + 1
+    export_batches = sum(-(-n // BATCH) for n in per_seq.values())
+    runs = {}
+
+    def run(tag, argv, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli.main(parse(argv))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"[export] {tag}: launches {counts}, expected {want}")
+        log(f"[export] {tag}: wall clock {time.perf_counter() - t0:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})} ({card})")
+        runs[tag] = counts
+        return res
+
+    def files(path, suffix):
+        return sorted(os.path.relpath(os.path.join(d, f), path)
+                      for d, _, fs in os.walk(path) for f in fs if f.endswith(suffix))
+
+    # 1. the submission through the CLI
+    res = run("--extraction_mode submit_pose", cli_argv(
+        data_dir, os.path.join(EXPORT_DIR, "cli"), "--extraction_mode", "submit_pose",
+        "--resume", resume), expected(SERVE, export_batches))
+    sub = res["submission"]
+    pts = files(sub, ".pt")
+    if not pts or len(pts) != 10 * len({tuple(n.split("/")[-4:-1]) for n in ds_val.imgnames}):
+        raise AssertionError(f"[export] {len(pts)} submission files")
+    for name in pts:
+        t = torch.load(os.path.join(sub, name), weights_only=False)
+        if isinstance(t, torch.Tensor) and (t.dtype != torch.float16
+                                            or not torch.isfinite(t.float()).all()):
+            raise AssertionError(f"[export] {name}: {t.dtype}, finite {torch.isfinite(t).all()}")
+    ms = res["timing"]["batch_ms"]
+    log(f"[export] submission: {len(pts)} files for {len(ds_val)} frames of {len(per_seq)} "
+        f"sequences, {export_batches} batches of {BATCH} (12 staged K1 launches each): batch ms "
+        f"{', '.join(f'{x:.1f}' for x in ms)} (steady {np.median(ms[1:] or ms):.1f} ms: host decode, "
+        f"forward, selection, extraction; B={BATCH}, fp32, {card})")
+
+    # 2. the same export in this process, kernels against the plain versions
+    args = parse(cli_argv(data_dir, EXPORT_DIR))
+    model = cli.build_model(args, "cuda")
+    ckpt.load_checkpoint(resume, model)
+    ds = arctic.ArcticDataset(root, "p1", "val", kp3d_cano=kp3d, img_res=IMG_RES)
+    kernel_vals, plain_vals = {}, {}
+    run_extraction(model, ds, BATCH, os.path.join(EXPORT_DIR, "api"), float(IMG_RES),
+                   results=kernel_vals)
+    set_msda_impl(model, "torch")
+    try:
+        run_extraction(model, ds, BATCH, os.path.join(EXPORT_DIR, "plain"), float(IMG_RES),
+                       results=plain_vals)
+    finally:
+        set_msda_impl(model, "auto")
+    worst = 0.0
+    for cam, cur in plain_vals.items():
+        for k, v in cur.items():
+            if isinstance(v, list):
+                if kernel_vals[cam][k] != v:
+                    raise AssertionError(f"[export] {cam} {k}: the frames differ")
+                continue
+            err = float(np.abs(kernel_vals[cam][k] - v).max()) / max(1.0, float(np.abs(v).max()))
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                raise AssertionError(f"[export] {cam} {k}: kernel vs plain {err:.3e} > 1e-4")
+    for name in pts:
+        a = torch.load(os.path.join(sub, name), weights_only=False)
+        b = torch.load(os.path.join(EXPORT_DIR, "api", name), weights_only=False)
+        if not (a == b if isinstance(a, list) else torch.equal(a, b)):
+            raise AssertionError(f"[export] {name}: the CLI's file differs from run_extraction's")
+    log(f"[export] run_extraction, kernels against the plain MSDA versions: values before the "
+        f"float16 cast within {worst:.3e} of each tensor's max (tol 1e-4); the CLI's files "
+        f"equal the kernel run's bit for bit")
+    del model
+
+    # 3. the backbone's maps, and a local_fm model fed from them
+    res = run("--extract", cli_argv(data_dir, os.path.join(EXPORT_DIR, "extract"), "--extract"),
+              expected({}, 0))
+    stored = files(res["features"], ".pkl")
+    ds_train = arctic.ArcticDataset(root, "p1", "train")
+    if len(stored) != len(ds_train):
+        raise AssertionError(f"[export] {len(stored)} stored maps for {len(ds_train)} frames")
+    maps = load_feature_maps(os.path.join(data_dir, "pickle"), ds_train.imgnames[:BATCH])
+    shapes = [m.shape for m in maps]
+    if shapes != [(BATCH, h, w, c) for (h, w), c in zip(LOCAL_FM_LEVELS, (512, 1024, 2048))]:
+        raise AssertionError(f"[export] stored maps {shapes}")
+    fm_model = build_model(feature_type="local_fm", num_feature_levels=3)
+    x = [torch.as_tensor(m, device="cuda") for m in maps]
+    with torch.inference_mode():
+        fm_model(x)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fm_model(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if counts != expected(SERVE, 3):
+            raise AssertionError(f"[export] local_fm forwards: launches {counts}")
+        runs["local_fm serving batches"] = counts
+        set_msda_impl(fm_model, "torch")
+        ref = fm_model(x)
+        set_msda_impl(fm_model, "auto")
+    for k in ("pred_logits", "pred_hand_key", "pred_obj_key", "pred_mano_pose", "pred_obj_cam"):
+        err = float((out["stacked"][k] - ref["stacked"][k]).abs().max())
+        if not (torch.isfinite(out["stacked"][k]).all() and err <= 1e-4):
+            raise AssertionError(f"[export] local_fm {k}: kernel vs plain {err:.3e}")
+    log(f"[export] local_fm model (3 levels, S = 1029) on {len(stored)} stored maps' first "
+        f"{BATCH} frames: forward ms {', '.join(f'{t:.1f}' for t in times)} (B={BATCH}, fp32, "
+        f"{card}); 12 staged K1 launches a batch; outputs equal to its plain MSDA run's "
+        f"within 1e-4")
+    del fm_model
+
+    # 4. the visualization route
+    vis = os.path.join(EXPORT_DIR, "vis")
+    frames = min(len(ds_val), VIS_FRAMES)
+    run("--eval --visualization", cli_argv(data_dir, vis, "--num_debug", "2", "--eval",
+                                           "--visualization", "--resume", resume),
+        expected(SERVE, -(-frames // 4)))
+    pngs, objs = files(os.path.join(vis, "vis"), ".png"), files(os.path.join(vis, "vis"), ".obj")
+    if len(pngs) != frames or len(objs) != 12:
+        raise AssertionError(f"[export] visualization wrote {len(pngs)} PNGs, {len(objs)} OBJs")
+    log(f"[export] visualization: {len(pngs)} PNGs and {len(objs)} OBJs for {frames} frames in "
+        f"batches of 4 (12 staged K1 launches each)")
+    log(f"[export] phase 23 took {time.perf_counter() - t_phase:.2f} s of wall clock ({card})")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -2596,6 +2800,11 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     log(f"[card] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    # what the native image library (uvhand_tpu_torch/native/) needs to build
+    log(f"[card] native image library's toolchain: g++ {shutil.which('g++')}, OpenCV 4 "
+        f"headers {os.path.isdir('/usr/include/opencv4')}, jpeglib.h "
+        f"{os.path.exists('/usr/include/jpeglib.h')} (without both headers "
+        f"--native_loader on|fast raises with the compiler's message)")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2708,6 +2917,10 @@ def main() -> int:
     log(f"[assembly] phase 22 with its CLI runs took {time.perf_counter() - t0:.2f} s of wall "
         f"clock")
 
+    # 23. the export routes: the ARCTIC submission, the backbone maps and a
+    # local_fm model fed from them, the visualization
+    export_runs = export_phase(card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -2731,7 +2944,10 @@ def main() -> int:
         "only layers (Lq 261 against S 1045, B=16); *_dn_decoder_call(_bf16): one decoder call "
         "of the DINO train step (Lq 498: 300 + 198 CDN queries, B=16); *_temporal_call: one "
         "float32 encoder call of the temporal train step (its 32 window frames, Lq = S = 1045); "
-        "*_assembly_call: one float32 decoder call of AssemblyDETR (Lq 3 against S 1045, B=16)")
+        "*_assembly_call: one float32 decoder call of AssemblyDETR (Lq 3 against S 1045, B=16); "
+        "msda_fwd_*_local_fm_call: one float32 encoder call of the local_fm model (3 levels, "
+        "Lq = S = 1029, B=16); launches_by_path cli_extraction_mode, serve_local_fm (3 batches) "
+        "and cli_visualization: phase 23's")
 
     log("[kernel] the research kernels' ms, plain_ms and bound_ms are per call at the TPU "
         "scripts' shapes, bf16 for the ablation's (the bench's default; fp32 beside it), float32 "
@@ -2779,7 +2995,11 @@ def main() -> int:
                 "serve_assembly": assembly_counts[0][name],
                 "train_assembly": assembly_counts[1][name],
                 **{f"cli_{tag.split()[0].lower()}_{'train' if 'train' in tag else 'eval'}": n[name]
-                   for tag, n in coco_cli_runs.items()}}
+                   for tag, n in coco_cli_runs.items()},
+                "cli_extraction_mode": export_runs["--extraction_mode submit_pose"][name],
+                "cli_extract": export_runs["--extract"][name],
+                "serve_local_fm": export_runs["local_fm serving batches"][name],
+                "cli_visualization": export_runs["--eval --visualization"][name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)
@@ -2800,7 +3020,10 @@ def main() -> int:
                 **{f"{k}_temporal_call": window[k]
                    for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
                 **{f"{k}_assembly_call": assembly[k]
-                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+                   for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+                **({f"{k}_local_fm_call": timed_["local_fm encoder fp32"][kind][k]
+                    for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+                   if "local_fm encoder fp32" in timed_ else {})}
 
     def fac_row(op, kind, key, launches, replaces):
         fp32 = per_call(ftimed[key], "fp32", kind)

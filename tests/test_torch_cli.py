@@ -7,8 +7,10 @@
     `not_use_params` keeps fresh values; a mismatched optimizer is restored
     tolerantly; `list_checkpoints` sorts by epoch; a resumed schedule
     continues at its step's learning rate;
-  - every option the port does not run exits with a message naming its
-    ROADMAP item (the Swin-L backbone and the COCO-format datasets run:
+  - every option the port does not run (`--mp > 1`) exits with a message
+    naming its ROADMAP item; `--extract`, `--extraction_mode`, `--eval
+    --visualization` and `--native_loader` run tiny through their routes,
+    and `--feature_type local_fm` exits naming the JAX CLI's failure (the Swin-L backbone and the COCO-format datasets run:
     `tests/test_torch_swin.py`, `tests/test_torch_coco.py`); the temporal
     routes run: `--method
     arctic_lstm` with each `--temporal_head` trains, evaluates and resumes,
@@ -77,8 +79,8 @@ def test_config_file_merges_as_the_jax_cli(tmp_path):
     cfg.write_text("custom_knob = 7\nlr = 9.9\nnested = dict(a=1, b=2)\n")
     args = get_args_parser().parse_args(
         ["--config_file", str(cfg), "--options", "custom_knob=8", "nested.b=3",
-         "--output_dir", str(tmp_path / "out"), "--extract"])
-    with pytest.raises(SystemExit, match="--extract"):  # stops after the merge
+         "--output_dir", str(tmp_path / "out"), "--mp", "2"])
+    with pytest.raises(SystemExit, match="--mp"):  # stops after the merge
         main(args)
     raw = json.load(open(tmp_path / "out" / "config_args_raw.json"))
     assert raw["custom_knob"] == 8 and raw["nested"] == {"a": 1, "b": 3}
@@ -177,10 +179,6 @@ def test_a_resumed_schedule_continues_at_its_step():
 
 
 UNPORTED = {
-    "extract": ["--extract"],
-    "extraction_mode": ["--extraction_mode", "submit_pose"],
-    "visualization": ["--visualization"], "native_loader": ["--native_loader", "fast"],
-    "feature_type": ["--feature_type", "local_fm"],
     "mp": ["--mp", "2"],
 }
 
@@ -191,6 +189,44 @@ def test_every_unported_option_exits_naming_its_roadmap_item(name, tmp_path):
             *UNPORTED[name]]
     with pytest.raises(SystemExit, match=r"not ported yet: .*\(ROADMAP Queue 1 item"):
         main(get_args_parser().parse_args(argv))
+
+
+#: the options that exited as unported before the export routes and the
+#: native loader were ported, each run tiny through its route
+ROUTES = {
+    "extract": ["--extract"],
+    "extraction_mode": ["--extraction_mode", "submit_pose"],
+    "visualization": ["--eval", "--visualization"],
+    "native_loader": ["--native_loader", "fast"],
+    "feature_type": ["--feature_type", "local_fm"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_each_formerly_unported_option_runs_its_route(name, small_root, tmp_path):
+    """`--extract`, `--extraction_mode`, `--eval --visualization` and
+    `--native_loader` run on the CPU and write what they should;
+    `--feature_type local_fm` exits naming the JAX CLI's failure (ROADMAP
+    Queue 3), not as unported."""
+    out = tmp_path / "out"
+    argv = small_root + ["--two_stage", "--with_box_refine", "--output_dir", str(out),
+                         "--device", "cpu", *ROUTES[name]]
+    if name == "feature_type":
+        with pytest.raises(SystemExit, match=r"--feature_type local_fm .*the JAX CLI .*fails"):
+            main(get_args_parser().parse_args(argv))
+        return
+    res = main(get_args_parser().parse_args(argv))
+    if name == "extract":
+        assert any(f.endswith(".pkl") for _, _, fs in os.walk(res["features"]) for f in fs)
+    elif name == "extraction_mode":
+        assert any(f == "pred.mano.pose.r.pt" for _, _, fs in os.walk(res["submission"])
+                   for f in fs)
+    elif name == "visualization":
+        assert sorted(os.listdir(out / "vis"))[0] == "00000.png"
+    else:  # every image of the epoch's step and eval through the C call
+        assert res["image_routes"]["train"]["native"] == 8
+        assert set(res["image_routes"]["train"]) == {"native"}
+        assert np.isfinite(res["epochs"][0]["stats"]["loss"])
 
 
 @pytest.mark.parametrize("flags", [["--use_dn"], ["--modelname", "dino"],
@@ -213,8 +249,8 @@ def test_the_dino_config_file_adds_only_missing_keys(tmp_path):
     divergence of the JAX CLI from the reference, mirrored)."""
     args = get_args_parser().parse_args(
         ["-c", os.path.join(os.path.dirname(__file__), "..", "configs", "DINO",
-                            "DINO_4scale.py"), "--output_dir", str(tmp_path), "--extract"])
-    with pytest.raises(SystemExit, match="--extract"):
+                            "DINO_4scale.py"), "--output_dir", str(tmp_path), "--mp", "2"])
+    with pytest.raises(SystemExit, match="--mp"):
         main(args)
     raw = json.load(open(tmp_path / "config_args_raw.json"))
     assert raw["use_dn"] is False and raw["modelname"] == "deformable_detr"

@@ -35,7 +35,10 @@ patched down to embed 32, depths 2/2/2/2, as `tests/test_torch_swin.py`
 does) and a 1+2-layer `AssemblyDETR`, float32 at 128x128: their eval
 outputs through the kernels within 1e-4 of those through the plain
 versions, and a train step launches 4 + 4 (Swin) or 3 + 3 (AssemblyHands)
-staged kernels and no general one.
+staged kernels and no general one. A 2+2-layer `local_fm` model on the
+backbone's 3 maps of a 224x224 image (S = 1029) launches the staged forward
+kernel 4 times and no general one, its outputs within 1e-4 of the plain
+run's.
 
 The research kernels (`uvhand_tpu_torch/ops/msda_ablation.py`,
 `uvhand_tpu_torch/ops/probes.py`), in float32 and bfloat16: the ablation
@@ -1158,3 +1161,34 @@ def test_swin_and_assembly_models_through_the_staged_kernels(cuda, model_kind, m
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counts, before)] == [per_pass, per_pass, 0, 0]
     assert all(bool(torch.isfinite(v)) for v in ld.values()) and float(ld["grad_norm"]) > 0
+
+
+@pytest.mark.cuda
+def test_local_fm_model_through_the_staged_kernel(cuda):
+    """A precomputed-feature model (`feature_type="local_fm"`: the backbone's
+    3 maps of a 224x224 image, no extra level, S = 1029) launches the staged
+    forward kernel once a layer and no general one, its outputs within 1e-4
+    of those through the plain versions."""
+    from uvhand_tpu_torch.models.detr import UVHandDETR
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    maps = [torch.randn(2, h, h, c, generator=gen, device=cuda)
+            for h, c in ((28, 512), (14, 1024), (7, 2048))]
+    model = UVHandDETR(num_queries=12, num_encoder_layers=2, num_decoder_layers=2, d_model=64,
+                       n_heads=4, dim_feedforward=128, feature_type="local_fm",
+                       num_feature_levels=3, generator=torch.Generator().manual_seed(0),
+                       device=cuda)
+    counts = (msda_cuda.FWD_STAGED, msda_cuda.FWD_GENERAL)
+    outs = {}
+    for impl in ("auto", "torch"):
+        _set_impl(model, impl)
+        before = [c.launches for c in counts]
+        with torch.no_grad():
+            outs[impl] = model(maps)["stacked"]
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counts, before)] == (
+            [4, 0] if impl == "auto" else [0, 0])
+    for k, ref in outs["torch"].items():
+        if isinstance(ref, torch.Tensor):
+            err = float((outs["auto"][k] - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            assert err <= 1e-4, (k, err)

@@ -164,8 +164,18 @@ def test_prefetch_samples_yields_each_chunk_in_order(roots):
                                                          for c in chunks]
 
 
-def test_native_image_path_is_refused(roots):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+def test_native_image_path_is_refused(roots, tmp_path, monkeypatch):
+    """Where the native library cannot be built, the native path is refused
+    with the compiler's message (the JAX dataset turns it off quietly); the
+    path itself is `tests/test_torch_native.py`'s."""
+    from uvhand_tpu_torch import native
+
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("not c++\n")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(native.NativeBuildError, match="error"):
         arctic.ArcticDataset(roots[0], "p1", "val", native_images="on")
 
 

@@ -52,9 +52,23 @@ batches it (`data/loader.py`), trains with a checkpoint each epoch
 reference `.pth`, `--resume_dir` a sweep) and evaluates with the default
 metric set, the sequence metrics MDev and ACC included. Every flag of the
 JAX CLI is taken with its default; `--device` means the card unless it is
-`cpu`. An option this port does not run exits with a message naming its
-ROADMAP item (`UNPORTED`); none is ignored silently. `--stem_s2d` is the
-JAX package's TPU rewrite of the same stem: taken, and the one stem runs.
+`cpu`. An option this port does not run (`--mp > 1`) exits with a message
+naming its ROADMAP item (`UNPORTED`); none is ignored silently.
+`--feature_type global_fm|local_fm` exits too: the JAX CLI fails on it
+(ROADMAP Queue 3), and the feature path runs through the Python API.
+
+The export routes, in the JAX CLI's order, after `--resume`:
+
+  python -m uvhand_tpu_torch.cli.main --extraction_mode submit_pose \
+      --resume exps/run1/9 --two_stage --with_box_refine ...  # ARCTIC submission
+  python -m uvhand_tpu_torch.cli.main --extract ...    # backbone maps, {coco_path}/pickle
+  python -m uvhand_tpu_torch.cli.main --eval --visualization --resume ...  # {output_dir}/vis
+
+`--native_loader on|fast` decodes the images through the native library
+(`uvhand_tpu_torch/native/`, built at first use into `build/native/`); it
+raises where the library cannot be built. Every run prints how many images
+took each route. `--stem_s2d` is the JAX package's TPU rewrite of the same
+stem: taken, and the one stem runs.
 
 Several processes, one device each, train and evaluate data-parallel:
 
@@ -260,14 +274,6 @@ def get_args_parser():
 
 UNPORTED = (
     # (is the option given?, what it is, its ROADMAP Queue 1 item)
-    (lambda a: a.extract, "--extract", "item 12 (cli/extract_features.py)"),
-    (lambda a: bool(a.extraction_mode), "--extraction_mode",
-     "item 12 (cli/extract_predicts.py)"),
-    (lambda a: a.visualization, "--visualization", "item 12 (evaluation/visualize.py)"),
-    (lambda a: a.native_loader != "off", "--native_loader on|fast",
-     "item 4 (the native image path)"),
-    (lambda a: a.feature_type != "origin", "--feature_type global_fm|local_fm",
-     "item 12 (cli/extract_features.py, which writes the features)"),
     (lambda a: a.mp > 1, "--mp > 1", "item 6b (model parallelism)"),
 )
 #: the datasets of the COCO-format route (`run_coco`)
@@ -281,6 +287,19 @@ def check_ported(args) -> None:
     if given:
         raise SystemExit("uvhand_tpu_torch: not ported yet: " + "; ".join(
             f"{what} (ROADMAP Queue 1 {item})" for what, item in given))
+
+
+def check_feature_type(args) -> None:
+    """Exit on `--feature_type global_fm|local_fm`, which the JAX CLI cannot
+    run either (ROADMAP Queue 3)."""
+    if args.feature_type != "origin":
+        raise SystemExit(
+            f"uvhand_tpu_torch: --feature_type {args.feature_type} is not run by the CLI: the "
+            f"JAX CLI builds the model without a backbone and feeds it the loader's images, "
+            f"and fails in parameter init (uvhand_tpu/cli/main.py, models/transformer.py: "
+            f"TypeError, incompatible shapes); nothing in the data path produces feature maps. "
+            f"Store them with --extract and feed UVHandDETR(feature_type=...) the maps of "
+            f"cli/extract_features.py::load_feature_maps (ROADMAP Queue 3)")
 
 
 def onecycle_epochs(args) -> int:
@@ -453,6 +472,7 @@ def main(args) -> dict:
             with open(os.path.join(args.output_dir, "config_args_raw.json"), "w") as f:
                 json.dump(vars(args), f, indent=2, default=str)
     check_ported(args)
+    check_feature_type(args)
     device = resolve_device(args.device)
     if mesh.active() and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())  # this process's card
@@ -486,11 +506,12 @@ def main(args) -> dict:
     ds_train = arctic_data.ArcticDataset(
         root, args.setup, args.trainsplit, img_res=args.img_res,
         focal_length=args.focal_length, kp3d_cano=kp3d_cano,
-        two_stage=args.two_stage, aug=args.use_augm or None)
+        two_stage=args.two_stage, aug=args.use_augm or None, native_images=args.native_loader)
     ds_val = arctic_data.ArcticDataset(
         root, args.setup, args.valsplit, img_res=args.img_res,
         focal_length=args.focal_length, kp3d_cano=kp3d_cano,
-        two_stage=args.two_stage, seq=args.seq, viewpoint=args.test_viewpoint)
+        two_stage=args.two_stage, seq=args.seq, viewpoint=args.test_viewpoint,
+        native_images=args.native_loader)
     shard = dict(rank=rank, world_size=world_size)  # this process's rows of each batch
     if args.method == "arctic_lstm" and not args.eval and not args.train_smoothnet:
         # a window of --window_size frames centred on each frame (TempoDataset),
@@ -561,9 +582,26 @@ def main(args) -> dict:
     result: dict = {"timing": timing}
 
     try:
+        if args.extract or args.extraction_mode:
+            result.update(export(args, model, ds_train, ds_val, timing, rank))
+            return result
         if args.train_smoothnet:
             result["smoothnet"] = train_smoothnet(args, model, world, ds_train, device,
                                                    max_steps)
+            return result
+        if args.eval and args.visualization:
+            # 2D keypoint overlays and OBJ meshes (the reference's
+            # visualize_arctic_result), written by rank 0
+            from ..evaluation.visualize import save_eval_visualizations
+
+            if rank == 0:
+                out = save_eval_visualizations(
+                    model, ds_val, *world, os.path.join(args.output_dir, "vis"),
+                    float(args.img_res),
+                    max_frames=args.num_debug * args.val_batch_size if args.debug else 64)
+                print(f"visualizations written to {out}")
+                result["visualization"] = out
+            mesh.barrier()
             return result
         if args.eval:
             ckpts = ckpt.list_checkpoints(args.resume_dir) if args.resume_dir else [None]
@@ -606,6 +644,39 @@ def main(args) -> dict:
     finally:
         dl_train.close()
         dl_val.close()
+        result["image_routes"] = {"train": dict(ds_train.image_routes),
+                                  "val": dict(ds_val.image_routes)}
+        print(f"images decoded (native_loader {args.native_loader}): "
+              f"{json.dumps(result['image_routes'])}")
+
+
+def export(args, model, ds_train, ds_val, timing, rank) -> dict:
+    """`--extract` (the backbone's maps of the train split, stored under
+    `{coco_path}/pickle` in batches of `--batch_size`) or `--extraction_mode`
+    (whatever its value: the ARCTIC submission of the val split, restricted
+    to the protocol's sequences where its file exists, under
+    `{output_dir}/submission` in batches of `--val_batch_size`), as the JAX
+    CLI routes them; rank 0 writes, the other processes wait."""
+    from ..train import mesh
+    from .extract_features import extract_features
+    from .extract_predicts import load_protocol_seqs, run_extraction
+
+    out = {}
+    if rank == 0:
+        if args.extract:
+            out["features"] = extract_features(
+                model, ds_train, os.path.join(args.coco_path, "pickle"), args.setup,
+                args.trainsplit, batch_size=args.batch_size)
+            print(f"features dumped to {out['features']}")
+        else:
+            out["submission"] = run_extraction(
+                model, ds_val, args.val_batch_size, os.path.join(args.output_dir, "submission"),
+                float(args.img_res),
+                seqs=load_protocol_seqs(args.coco_path, args.dataset_file, args.setup),
+                timing=timing)
+            print(f"submission written to {out['submission']}")
+    mesh.barrier()
+    return out
 
 
 def run_coco(args, device) -> dict:

@@ -21,14 +21,19 @@ data. The temporal route's windows are copies too: `create_windows` and
 `TempoTrainDataset` (a window centred on every frame, for `--method
 arctic_lstm`), `collate_tempo_train` and `collate_windows` (B windows of T
 frames flattened to B*T rows). The native image path
-(`native_images="on"/"fast"`) is not ported (ROADMAP Queue 1 item 4b).
+(`native_images="on"/"fast"`, `uvhand_tpu_torch/native/`) fuses the image
+half of `__getitem__` into one C call; it raises where the library cannot be
+built (the JAX dataset turns it off quietly there), and a file the C call
+cannot decode takes the Python path, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import os.path as op
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -153,20 +158,43 @@ class ArcticDataset:
         self.ioi_offset = {s: m["ioi_offset"] for s, m in misc.items()}
         self.kp3d_cano = kp3d_cano  # meters
         self.egocam_k = None
-        # the native (C++) image path of the JAX package is not ported
+        # the native (C++) fused decode + blur + warp + normalize image path
+        # (uvhand_tpu_torch/native): "on" = full-resolution decode
+        # (OpenCV-identical), "fast" = ROI + scaled libjpeg decode (geometry
+        # exact, pixels approximate). A library that cannot be built raises
+        # here with the compiler's message; a file the C call cannot decode
+        # takes the Python path (`image_routes["fallback"]`)
         if native_images not in ("off", "on", "fast"):
             raise ValueError(f"native_images={native_images!r}")
         if native_images != "off":
-            raise NotImplementedError(
-                f"native_images={native_images!r}: the native image path is not ported "
-                f"(ROADMAP Queue 1 item 4); use 'off'")
+            from .. import native
+
+            native.load()
         self.native_images = native_images
+        #: images decoded by each route: "native" (the C call), "python"
+        #: (the native path off), "fallback" (the C call could not decode
+        #: the file); counted in this process (thread workers)
+        self.image_routes = collections.Counter()
+        self._routes_lock = threading.Lock()
 
     def _load_image(self, img_path, center, bbox_dim, augm):
-        """Image half of __getitem__: decode + rgb_processing + normalize,
-        the reference ops one by one. Returns (img, ok)."""
+        """Image half of __getitem__: decode + rgb_processing + normalize.
+        Returns (img, ok). The native path fuses the whole chain in one
+        GIL-free C call (`native.process_image`); the Python path runs the
+        reference ops one by one."""
         import cv2
 
+        route = "python"
+        if self.native_images != "off":
+            from .. import native
+
+            img = native.process_image(img_path, center, bbox_dim, augm, self.img_res,
+                                       fast=self.native_images == "fast")
+            if img is not None:
+                self._count("native")
+                return img, True
+            route = "fallback"
+        self._count(route)
         cv_img = cv2.imread(img_path)
         if cv_img is None:
             cv_img = np.zeros((600, 840, 3), np.float32)
@@ -176,6 +204,10 @@ class ArcticDataset:
             ok = True
         img = augment.rgb_processing(cv_img, center, bbox_dim, augm, self.img_res)
         return augment.normalize_image(img), ok
+
+    def _count(self, route: str):
+        with self._routes_lock:
+            self.image_routes[route] += 1
 
     def __len__(self):
         return len(self.imgnames)

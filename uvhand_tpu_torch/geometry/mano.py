@@ -32,6 +32,12 @@ TIP_VERTEX_IDS = (744, 320, 443, 554, 672)  # thumb, index, middle, ring, pinky
 # middle 4-6, pinky 7-9, ring 10-12, thumb 13-15)
 MANO_PARENTS = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14)
 
+# manopth's visualization / eval order: kinematic + tips -> wrist, then the
+# thumb..pinky chains (the reference's manolayer.py:260)
+JOINT_REORDER_MANOPTH = (
+    0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20,
+)
+
 NUM_VERTS = 778
 NUM_JOINTS = 16
 NUM_SHAPE = 10
@@ -172,3 +178,37 @@ def mano_forward(
     verts = torch.einsum("bvij,bvj->bvi", T_v[..., :3, :3], v_posed) + T_v[..., :3, 3]
 
     return verts, torch.cat([posed_joints, verts[:, list(TIP_VERTEX_IDS)]], 1)
+
+
+def reorder_joints_manopth(joints21: torch.Tensor) -> torch.Tensor:
+    """smplx / kinematic order -> manopth's visualization order."""
+    return joints21[..., list(JOINT_REORDER_MANOPTH), :]
+
+
+# wrist sealing (the reference's body_models.py:36-74): the faces around the
+# wrist ring closed with a centroid vertex 778
+SEAL_FACES_R = np.array(
+    [
+        [120, 108, 778], [108, 79, 778], [79, 78, 778], [78, 121, 778],
+        [121, 214, 778], [214, 215, 778], [215, 279, 778], [279, 239, 778],
+        [239, 234, 778], [234, 92, 778], [92, 38, 778], [38, 122, 778],
+        [122, 118, 778], [118, 117, 778], [117, 119, 778], [119, 120, 778],
+    ],
+    np.int32,
+)
+CIRCLE_V_ID = np.array(
+    [108, 79, 78, 121, 214, 215, 279, 239, 234, 92, 38, 122, 118, 117, 119, 120], np.int64)
+
+
+def seal_mano_mesh(v3d: torch.Tensor, faces: np.ndarray, is_rhand: bool):
+    """Append the wrist ring's centroid vertex and the sealing faces:
+    v3d (B, 778, 3) -> ((B, 779, 3), faces + 16)."""
+    seal = SEAL_FACES_R if is_rhand else SEAL_FACES_R[:, [1, 0, 2]]
+    centers = v3d[:, torch.as_tensor(CIRCLE_V_ID, device=v3d.device)].mean(1, keepdim=True)
+    return torch.cat([v3d, centers], 1), np.concatenate([faces, seal], 0)
+
+
+def decimate_verts(verts: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """MANODecimator.downsample: verts (B, 778, 3) through a (195, 778)
+    decimation matrix."""
+    return torch.einsum("sv,bvc->bsc", D, verts)

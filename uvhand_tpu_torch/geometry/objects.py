@@ -56,6 +56,8 @@ class ObjectBank:
     kp_top: torch.Tensor  # (O, 16, 3)
     kp_bottom: torch.Tensor  # (O, 16, 3)
     diameter: torch.Tensor  # (O,)
+    f: np.ndarray | None = None  # (O, Fmax, 3) int32 faces, padded (host)
+    f_len: np.ndarray | None = None  # (O,) faces per object
     names: tuple = OBJECT_NAMES
 
     @property
@@ -106,6 +108,20 @@ def object_forward(
     }
 
 
+def object_template(bank: ObjectBank, obj_idx: torch.Tensor):
+    """The un-posed template tensors (the reference's forward_template)."""
+    obj_idx = obj_idx.long()
+    return {
+        "v": bank.v[obj_idx],
+        "mask": bank.mask[obj_idx],
+        "v_len": bank.v_len[obj_idx],
+        "v_sub": bank.v_sub[obj_idx],
+        "parts_ids": bank.parts_ids[obj_idx],
+        "parts_sub_ids": bank.parts_sub_ids[obj_idx],
+        "diameter": bank.diameter[obj_idx],
+    }
+
+
 def _pad_stack(arrs, pad_to=None):
     lens = np.array([len(a) for a in arrs])
     m = int(pad_to or lens.max())
@@ -122,16 +138,16 @@ def load_object_bank(meta_dir: str, names=OBJECT_NAMES, device=None) -> ObjectBa
     As the JAX package's `load_object_bank` (the reference's
     construct_obj/construct_obj_tensors): mm -> meters (/1000), parts ids
     offset +1, the 300-keypoint subsets matched to their nearest mesh vertex
-    for part labels. The faces are not read (the JAX bank's `f`, `f_len`
-    serve the penetration loss and visualisation, not ported)."""
+    for part labels; the faces (fan-triangulated) stay on the host, padded,
+    in `f` / `f_len`."""
     dev = resolve_device(device)
-    vs, subs, parts_l, parts_sub_l = [], [], [], []
+    vs, subs, parts_l, parts_sub_l, fs = [], [], [], [], []
     bb_t, bb_b, kp_t, kp_b, diam = [], [], [], [], []
     with open(op.join(meta_dir, "object_meta.json")) as fh:
         meta = json.load(fh)
     for name in names:
         d = op.join(meta_dir, "object_vtemplates", name)
-        verts = _load_obj_verts(op.join(d, "mesh.obj"))
+        verts, faces = _load_obj_mesh(op.join(d, "mesh.obj"))
         with open(op.join(d, "parts.json")) as fh:
             parts = np.array(json.load(fh), bool)
         with open(op.join(d, "top_keypoints_300.json")) as fh:
@@ -146,6 +162,7 @@ def load_object_bank(meta_dir: str, names=OBJECT_NAMES, device=None) -> ObjectBa
         obj_key = "".join(c for c in name if not c.isdigit())
         vs.append(verts.astype(np.float32) / 1000)
         subs.append(sub_v.astype(np.float32) / 1000)
+        fs.append(np.asarray(faces, np.int32))
         parts_l.append(parts.astype(np.int32) + 1)
         parts_sub_l.append(parts_sub.astype(np.int32) + 1)
         bb_t.append(np.array(params["bbox_top"], np.float32) / 1000)
@@ -155,6 +172,7 @@ def load_object_bank(meta_dir: str, names=OBJECT_NAMES, device=None) -> ObjectBa
         diam.append(np.float32(meta[obj_key]["diameter"]))
     v, v_len = _pad_stack(vs)
     p, _ = _pad_stack(parts_l, pad_to=v.shape[1])
+    f, f_len = _pad_stack(fs)
     mask = (np.arange(v.shape[1])[None] < v_len[:, None]).astype(np.float32)
     t = lambda x, dtype: torch.as_tensor(np.asarray(x, dtype), device=dev)
     return ObjectBank(
@@ -169,16 +187,25 @@ def load_object_bank(meta_dir: str, names=OBJECT_NAMES, device=None) -> ObjectBa
         kp_top=t(np.stack(kp_t), np.float32),
         kp_bottom=t(np.stack(kp_b), np.float32),
         diameter=t(np.stack(diam), np.float32),
+        f=f,
+        f_len=f_len,
         names=tuple(names),
     )
 
 
-def _load_obj_verts(path: str) -> np.ndarray:
-    """The vertices of a wavefront OBJ file (the faces are not needed: no
-    ported module reads the object meshes' faces)."""
+def _load_obj_mesh(path: str):
+    """Minimal wavefront OBJ reader: vertices (float64) and triangle faces
+    (int64; polygons fan-triangulated)."""
+    verts, faces = [], []
     with open(path) as fh:
-        return np.asarray([[float(x) for x in line.split()[1:4]]
-                           for line in fh if line.startswith("v ")], np.float64)
+        for line in fh:
+            if line.startswith("v "):
+                verts.append([float(x) for x in line.split()[1:4]])
+            elif line.startswith("f "):
+                idx = [int(t.split("/")[0]) - 1 for t in line.split()[1:]]
+                for k in range(1, len(idx) - 1):  # fan-triangulate
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
 
 
 def synthetic_object_bank(seed: int = 0, num_objects: int = 11, vmax: int = 512,
@@ -207,5 +234,7 @@ def synthetic_object_bank(seed: int = 0, num_objects: int = 11, vmax: int = 512,
         kp_top=f32(rng.normal(scale=0.05, size=(num_objects, 16, 3))),
         kp_bottom=f32(rng.normal(scale=0.05, size=(num_objects, 16, 3))),
         diameter=f32(np.abs(rng.normal(0.2, 0.05, size=num_objects))),
+        f=np.zeros((num_objects, 4, 3), np.int32),
+        f_len=np.full(num_objects, 4),
         names=tuple(OBJECT_NAMES[:num_objects]),
     )

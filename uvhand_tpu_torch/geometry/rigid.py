@@ -1,6 +1,7 @@
 """Batched rigid alignment (Kabsch / Arun) and rigid transforms.
 
-Port of `uvhand_tpu/geometry/rigid.py`. The rotation is the orthogonal
+Port of `uvhand_tpu/geometry/rigid.py` (`to_homo` and `transform_points`
+too). The rotation is the orthogonal
 polar factor of H^T, polished by Newton iteration, whenever det(V U^T) > 0;
 the SVD form with the reflection fix covers the rest, as in the JAX solver.
 Callers on the card run it in full float32 (TF32 off).
@@ -71,3 +72,14 @@ def solve_rigid_transform(A: torch.Tensor, B: torch.Tensor):
     R = torch.where(det[..., None, None] > 0, R_polar, R_svd)
     t = -(R @ cA.transpose(-1, -2)) + cB.transpose(-1, -2)
     return R, t
+
+
+def to_homo(points: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) -> (..., N, 4)."""
+    return torch.cat([points, torch.ones_like(points[..., :1])], -1)
+
+
+def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply a (..., 4, 4) homogeneous transform to (..., N, 3) points."""
+    out = torch.einsum("...ij,...nj->...ni", T, to_homo(points))
+    return out[..., :3] / out[..., 3:].clamp(min=1e-9)

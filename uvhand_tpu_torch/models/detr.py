@@ -1,7 +1,12 @@
 """UVHand DETR: backbone + deformable transformer + output heads.
 
-Port of `uvhand_tpu/models/detr.py` for `feature_type="origin"`, the
-ResNet-50, Swin-L (`backbone="swin_L_384_22k"`) or ConvNeXt-XL
+Port of `uvhand_tpu/models/detr.py`: `feature_type="origin"` (images in)
+and the precomputed-feature models (`feature_type="global_fm"` or
+`"local_fm"`: no backbone is built; the model takes one stored backbone map
+a level, NHWC, each through a 1x1 input projection, with an all-false mask
+and no extra stride-2 level, so `num_feature_levels` is the backbone's 3
+maps), `forward(..., return_backbone_features=True)` (the backbone's maps
+alone, NHWC, what `cli/extract_features.py` stores), the ResNet-50, Swin-L (`backbone="swin_L_384_22k"`) or ConvNeXt-XL
 (`backbone="convnext_xlarge_22k"`) backbone, the DINO variant and the
 temporal heads:
   - input projections: per-level 1x1 conv + GroupNorm(32), plus an extra
@@ -84,6 +89,10 @@ from .temporal.sequence import TemporalParamHead
 from .transformer import MLP, DeformableTransformer, keep_mask
 
 BACKBONES = ("resnet50", "swin_L_384_22k", "convnext_xlarge_22k")
+FEATURE_TYPES = ("origin", "global_fm", "local_fm")
+#: the channels of each backbone's maps, which a precomputed-feature model takes
+FEATURE_CHANNELS = {"resnet50": RESNET50_CHANNELS, "swin_L_384_22k": swin.SWIN_L_CHANNELS,
+                    "convnext_xlarge_22k": tuple(convnext.CONVNEXT_XL_DIMS[1:])}
 
 
 def resize_mask(mask: torch.Tensor, size) -> torch.Tensor:
@@ -128,14 +137,16 @@ class UVHandDETR(nn.Module):
                  use_dn: bool = False, dino_variant: bool = False, dn_number: int = 100,
                  dn_label_noise_ratio: float = 0.5, dn_box_noise_scale: float = 1.0,
                  look_forward_twice: bool = False, temporal_head: str = "none",
-                 temporal_window: int = 0,
+                 temporal_window: int = 0, feature_type: str = "origin",
                  generator: torch.Generator | None = None, device=None):
         """Builds the model with weights drawn from `generator` on `device`
         (the CUDA card unless `device="cpu"` is given), in eval mode.
         Raises ValueError on a combination the JAX model cannot build
         (`two_stage=True, with_box_refine=False` but for the DINO variant;
         the DINO variant or `use_dn` without `two_stage`), and on an unknown
-        `temporal_head` or one with a `temporal_window` below 2."""
+        `temporal_head` or one with a `temporal_window` below 2, and on a
+        precomputed-feature model whose `num_feature_levels` is not the
+        backbone's number of maps (one stored map a level)."""
         super().__init__()
         if temporal_head != "none" and temporal_head not in TEMPORAL_HEADS:
             raise ValueError(f"unknown temporal_head {temporal_head!r}: none, lstm or vivit")
@@ -146,6 +157,9 @@ class UVHandDETR(nn.Module):
             raise ValueError(f"unknown position_embedding {position_embedding!r}")
         if backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {backbone!r}")
+        if feature_type not in FEATURE_TYPES:
+            raise ValueError(f"unknown feature_type {feature_type!r}: origin, global_fm or "
+                             f"local_fm")
         if use_dn and not two_stage:
             # the JAX model embeds the dn query positions with the two-stage
             # pos_trans MLP, which the single-stage model lacks
@@ -163,10 +177,18 @@ class UVHandDETR(nn.Module):
         self.dino = dino_variant
         self.use_dn = use_dn
         self.cdn = CdnConfig(dn_number, dn_label_noise_ratio, dn_box_noise_scale)
+        self.feature_type = feature_type
         # the reference's Joiner(backbone, position_embedding): the learned
         # embedding's parameters sit in its slot 1; the ResNet sits under
-        # slot 0's `.body`, the Swin and the ConvNeXt in slot 0 itself
-        if backbone == "resnet50":
+        # slot 0's `.body`, the Swin and the ConvNeXt in slot 0 itself; a
+        # precomputed-feature model keeps an empty slot 0
+        if feature_type != "origin":
+            body, channels = nn.Identity(), FEATURE_CHANNELS[backbone]
+            if num_feature_levels != len(channels):
+                raise ValueError(
+                    f"feature_type={feature_type!r} takes one stored map a level: "
+                    f"num_feature_levels must be {len(channels)}, got {num_feature_levels}")
+        elif backbone == "resnet50":
             body, channels = _Joiner0(compute_dtype), RESNET50_CHANNELS
         elif backbone == "swin_L_384_22k":
             # drop_path_rate 0.2, the JAX module's default, whatever the flags
@@ -254,7 +276,8 @@ class UVHandDETR(nn.Module):
             elif isinstance(mod, nn.MultiheadAttention):
                 nn.init.xavier_uniform_(mod.in_proj_weight, generator=generator)
                 nn.init.zeros_(mod.in_proj_bias)
-        self.body.reset_parameters(generator)
+        if self.feature_type == "origin":
+            self.body.reset_parameters(generator)
         for mod in self.modules():
             if isinstance(mod, MSDeformAttn):
                 mod.reset_parameters(generator)
@@ -300,22 +323,35 @@ class UVHandDETR(nn.Module):
         # the reference applies no 1/keep rescale
         return x * keep_mask(x.shape, 1.0 - self.feature_mask_ratio, generator, x.device)
 
-    def level_features(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
+    def backbone_features(self, images: torch.Tensor):
+        """The backbone's maps of NHWC images, NHWC (what the
+        precomputed-feature models take)."""
+        return [f.permute(0, 2, 3, 1) for f in self.body(images.permute(0, 3, 1, 2))]
+
+    def level_features(self, images, image_mask: torch.Tensor | None = None,
                        generator: torch.Generator | None = None):
         """(srcs (B, C, H_l, W_l), masks (B, H_l, W_l), pos (B, H_l, W_l, C))
-        for every level, from NHWC images."""
+        for every level, from NHWC images, or for a precomputed-feature
+        model from its list of NHWC maps (all-false masks)."""
         # the input projections promote the compute-type maps to their
         # parameters' type, as flax does. The JAX model calls its backbone
         # in eval mode, so the Swin's stochastic depth never runs here
-        feats = self.body(images.permute(0, 3, 1, 2))
-        B, H, W, _ = images.shape
-        if image_mask is None:
-            image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
-        srcs = [self._feature_mask(proj(f), generator) for proj, f in zip(self.input_proj, feats)]
-        for lvl in range(len(feats), self.num_feature_levels):
-            src = self.input_proj[lvl](feats[-1] if lvl == len(feats) else srcs[-1])
-            srcs.append(self._feature_mask(src, generator))
-        masks = [resize_mask(image_mask, s.shape[-2:]) for s in srcs]
+        if self.feature_type != "origin":
+            srcs = [self._feature_mask(proj(f.permute(0, 3, 1, 2)), generator)
+                    for proj, f in zip(self.input_proj, images)]
+            masks = [torch.zeros(s.shape[0], *s.shape[-2:], dtype=torch.bool, device=s.device)
+                     for s in srcs]
+        else:
+            feats = self.body(images.permute(0, 3, 1, 2))
+            B, H, W, _ = images.shape
+            if image_mask is None:
+                image_mask = torch.zeros(B, H, W, dtype=torch.bool, device=images.device)
+            srcs = [self._feature_mask(proj(f), generator)
+                    for proj, f in zip(self.input_proj, feats)]
+            for lvl in range(len(feats), self.num_feature_levels):
+                src = self.input_proj[lvl](feats[-1] if lvl == len(feats) else srcs[-1])
+                srcs.append(self._feature_mask(src, generator))
+            masks = [resize_mask(image_mask, s.shape[-2:]) for s in srcs]
         if len(self.backbone) > 1:
             poses = [self.backbone[1](m) for m in masks]
         elif self.dino:  # PositionEmbeddingSineHW: temperature 20, no half-cell shift
@@ -325,15 +361,20 @@ class UVHandDETR(nn.Module):
             poses = [sine_position_encoding(m, self.d_model // 2) for m in masks]
         return srcs, masks, poses
 
-    def forward(self, images: torch.Tensor, image_mask: torch.Tensor | None = None,
+    def forward(self, images, image_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None, dn_targets: dict | None = None,
-                dn_meta: dict | None = None):
-        """images (B, H, W, 3) NHWC; image_mask (B, H, W) True = padding;
+                dn_meta: dict | None = None, return_backbone_features: bool = False):
+        """images (B, H, W, 3) NHWC (a precomputed-feature model: its list of
+        (B, H_l, W_l, C_l) maps); image_mask (B, H, W) True = padding;
+        `return_backbone_features` returns the backbone's maps alone
+        (`backbone_features`);
         `generator` feeds dropout, the feature mask and the CDN draws in
         train mode. With `use_dn`, in train mode, `dn_targets` ({"labels",
         "keypoints", "target_valid"} of the batch) gives the CDN queries,
         drawn from `generator`; a given `dn_meta` (`models/dn.py::
         noise_cdn`'s dict) replaces the draw."""
+        if return_backbone_features:
+            return self.backbone_features(images)
         srcs, masks, poses = self.level_features(images, image_mask, generator)
         dn = None
         if self.use_dn and self.training and (dn_targets is not None or dn_meta is not None):
@@ -341,7 +382,7 @@ class UVHandDETR(nn.Module):
                 dn_meta = prepare_cdn(generator, dn_targets["labels"], dn_targets["keypoints"],
                                       dn_targets["target_valid"], self.num_classes, self.cdn)
             dn = (self.label_enc(dn_meta["dn_labels_noised"]), dn_meta["dn_keys_unact"],
-                  cdn_attn_mask(self.num_queries, self.cdn, images.device))
+                  cdn_attn_mask(self.num_queries, self.cdn, srcs[0].device))
         t_out = self.transformer(
             srcs, masks, poses, self.cls_heads, self.key_embed, self.obj_key_embed, generator,
             query_embed=None if self.two_stage else self.query_embed.weight, dn=dn)

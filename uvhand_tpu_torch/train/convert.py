@@ -3,7 +3,8 @@
 `state_dict_from_jax(params)` maps a flax `UVHandDETR` tree
 (`{'params': ...}` of numpy arrays; sine or learned position encoding,
 two-stage with box refinement or single-stage, the DINO variant, `use_dn`,
-the ResNet-50, Swin or ConvNeXt backbone) onto the port's `state_dict`,
+the ResNet-50, Swin or ConvNeXt backbone, or none: a precomputed-feature
+model) onto the port's `state_dict`,
 whose names are the upstream reference's state-dict names. It is the
 inverse of the JAX package's `convert_reference_detr` (and, for the Swin
 and the ConvNeXt, of its `convert_swin_checkpoint` and
@@ -75,6 +76,14 @@ head_dim) -> `attn.{i}.in_proj_weight` / `out_proj`; `fc1_{i}`, `fc2_{i}`
 `ArcticSmoother` tree (`<smoother>/{pos,vel,acc}/{encoder, res{i}/Dense_0,
 Dense_1, decoder}`, `<smoother>/fusion`) onto the port's names
 (`<smoother>.{pos,vel,acc}.{encoder, res.{i}.fc1, fc2, decoder}`).
+
+`load_torch_checkpoint(path)` is the port's side of the JAX package's
+`.pth` import (`uvhand_tpu/train/convert.py::load_torch_checkpoint`): a
+reference `{'model': state_dict}` file (or a bare state dict) already holds
+the port's names, so it returns that state dict as float tensors.
+`convert_torchvision_resnet50(sd)` names a torchvision ResNet-50 state dict
+as the port's backbone (`backbone.0.body.*`), dropping the classifier and
+the BatchNorms' `num_batches_tracked` (the backbone's BatchNorm is frozen).
 
 Dense kernels (in, out) are transposed to torch's (out, in); convs go
 HWIO -> OIHW. A bfloat16 leaf (a `bf16_params` tree) is widened to float32
@@ -251,8 +260,10 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         for name in (k for k in bb if k.startswith("out_norm")):
             norm(f"{body}.norm{name[len('out_norm'):]}", bb[name])
 
-    bb = p["backbone"]
-    if "stem_conv" in bb:  # the ConvNeXt in the Joiner's slot 0
+    bb = p.get("backbone")  # none in a precomputed-feature model
+    if bb is None:
+        pass
+    elif "stem_conv" in bb:  # the ConvNeXt in the Joiner's slot 0
         convnext(bb)
     elif "patch_embed" in bb:  # the Swin in the Joiner's slot 0
         swin(bb)
@@ -361,3 +372,24 @@ def state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     if "temporal_param_head" in p:
         sd.update(temporal_head_from_jax(p["temporal_param_head"]))
     return sd
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The port's state dict from a reference `.pth` training checkpoint
+    (`{'model': state_dict, ...}`, the reference's main.py layout, or a
+    bare state dict): its names are the port's, so no name is changed."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict) \
+        else ckpt
+    return {k: v.detach().cpu() for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def convert_torchvision_resnet50(state_dict) -> Dict[str, torch.Tensor]:
+    """A torchvision resnet50 state dict (tensors or numpy arrays) -> the
+    port's backbone names (`backbone.0.body.conv1.weight`, ...): the
+    classifier (`fc.*`) and the BatchNorms' `num_batches_tracked` dropped,
+    every tensor float32 on the CPU."""
+    return {f"backbone.0.body.{k}": torch.as_tensor(np.asarray(
+                v.detach().cpu() if isinstance(v, torch.Tensor) else v), dtype=torch.float32)
+            for k, v in state_dict.items()
+            if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
