@@ -146,9 +146,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      launched resumed eval's and to this process's eval of the checkpoint;
   17. the port's bench (`python -m uvhand_tpu_torch.bench`, a few steps a
      mode): its first line the bf16 train headline, finite and > 0, every
-     other line a rate (the Swin-L train line too), 12 staged forward
-     launches a call and 12 backward a train step; its lines logged beside
-     the card;
+     other line a rate (the Swin-L train line too), the window-32 and
+     Swin-L rows with the root bench's `note` and no `vs_baseline`, 12
+     staged forward launches a call and 12 backward a train step; then one
+     run with UVHAND_BENCH_PROFILE, _SR=1, _REMAT=1 and _EXTRA_MODES=0 (its
+     bf16 and fp32 train lines: _LITE=0, _INFER=0): a trace file a line,
+     bf16 parameters on the SR line, remat on both rows, 24 + 12 launches a
+     train step and the profiled calls counted;
+     its lines logged beside the card;
   18. DINO_4scale at full width (`dino_variant`, `use_dn`,
      look-forward-twice, dn_number 100: the decoder's calls of a train step
      take 300 + 198 CDN queries), float32 and bf16: 2 serving batches (12
@@ -211,6 +216,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      12 staged launches a batch, outputs within 1e-4 of its plain run's),
      and `--eval --visualization` (32 frames in batches of 4, a PNG each,
      the OBJ meshes of the first 4).
+  24. the measurement scripts (`uvhand_tpu_torch/scripts/`, each called as
+     its `main`): `bench_msda` at B=16, Lq = S = 1045, fp32 and bf16,
+     uniform and `--local`, `--mode both` (ms, device ms, bound, kernel
+     against plain within TOL for the output and each gradient, one staged
+     K1 launch a call and one staged K2/K3 a gradient call, none general);
+     `profile_step --steps 2` in bf16 and fp32 (device time by category,
+     the MSDA share, device ops a step, busy share; 12 + 12 launches a
+     step); `bench_epoch --frames 64 --workers 4` and `--host_only`;
+     `ab_enc_lite --eval_metrics` and `ab_temporal`, one chunk of one step
+     and the held-out eval each (finite losses, the TPU scripts' keys);
+     each run's wall clock logged.
+  25. `--mp 2` on the one card: two processes joined by gloo over CUDA
+     tensors (NCCL takes one rank a device), a (dp 1, mp 2) mesh
+     (`train/mesh.py::make_mesh`), arctic_sf at full width fp32 with its
+     train state sharded by the JAX package's rule (`shard_state`): 2 fused
+     steps on one synthetic batch held against one process (the first
+     step's every loss term and global norm within 1e-4, the second's
+     finite),
+     each sharded weight half its rows on each process, 12 + 12 staged
+     launches a step in each.
   Phases 3 and 3b also time the forward and backward kernels on one
   enc_lite call (Lq 261, S 1045, B=16, float32), on one DINO decoder
   call (Lq 498, float32 and bf16), on one encoder call of the temporal
@@ -252,7 +277,9 @@ from uvhand_tpu_torch.ops import msda_cuda
 from uvhand_tpu_torch.ops.msda import (MSDeformAttn, ms_deform_attn, ms_deform_attn_fac_torch,
                                        ms_deform_attn_fac_torch_backward, ms_deform_attn_torch,
                                        ms_deform_attn_torch_backward)
-from uvhand_tpu_torch.scripts import bench_msda_ablation, probe_dynamic_lane_slice, probe_gather
+from uvhand_tpu_torch.scripts import (ab_enc_lite, ab_temporal, bench_epoch, bench_msda,
+                                      bench_msda_ablation, probe_dynamic_lane_slice, probe_gather,
+                                      profile_step)
 from uvhand_tpu_torch.scripts.measure import device_ms, median_ms, msda_bound_ms, msda_bwd_bound_ms
 from uvhand_tpu_torch.train.state import create_optimizer, label_params
 
@@ -1762,7 +1789,7 @@ LAUNCH_STEPS = 2
 LAUNCH_TIMEOUT_S = 300
 BATCH_METRIC_FLAGS = ("--eval_metrics", "aae", "mpjpe.ra", "mrrpe", "success_rate", "cdev")
 #: phase 17: the bench's steps or batches a mode, after its warm-up one
-BENCH_SCAN = 4
+BENCH_SCAN = 2
 BENCH_TIMEOUT_S = 420
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1904,10 +1931,16 @@ def bench_phase(card):
     """Phase 17: `python -m uvhand_tpu_torch.bench` with UVHAND_BENCH_SCAN =
     BENCH_SCAN: its first line is the bf16 train headline, finite and > 0;
     every mode's line a rate (the Swin-L train line too), none
-    an error or a skip; launches 12 (+ 12 backward) a call of each mode, its
-    warm-up included (the window-32 train step, under remat, 24 + 12), all
-    staged.
-    Logs its lines as the bench printed them, beside the card."""
+    an error or a skip; the window-32 and Swin-L rows carry the root
+    bench's `note` and no `vs_baseline`; launches 12 (+ 12 backward) a call
+    of each mode, its warm-up included (the window-32 train step, under
+    remat, 24 + 12), all staged. Then one run with the root bench's other
+    knobs, UVHAND_BENCH_PROFILE, _SR=1, _REMAT=1 and _EXTRA_MODES=0 (and
+    _LITE=0, _INFER=0: its two train lines, bf16 and fp32): a trace file a
+    line, bfloat16 parameters on the SR line (the bf16 one), remat on both
+    rows, no window-32 or Swin-L row, and its launches (each line's calls
+    again under the profiler; train steps 24 + 12 under remat). Logs its lines as the bench printed them, beside
+    the card."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     stdout, counts = launched("bench", [sys.executable, "-m", "uvhand_tpu_torch.bench"],
@@ -1922,6 +1955,11 @@ def bench_phase(card):
     bad = [r for r in rows if not ("value" in r and np.isfinite(r["value"]) and r["value"] > 0)]
     if bad or len(timed) != 8:
         raise AssertionError(f"[bench] lines {bad}; {len(timed)} rates of 8")
+    noted = {r["metric"]: r for r in rows if "note" in r}
+    if set(noted) != {"train_frames_per_sec_chip_window32", "train_frames_per_sec_chip_swin"} \
+            or any("vs_baseline" in r for r in noted.values()):
+        raise AssertionError(f"[bench] the window-32 and Swin-L rows must carry a note and no "
+                             f"vs_baseline: {list(noted.values())}")
     calls = 1 + BENCH_SCAN  # a mode's calls: its warm-up and the timed ones
     # 4 train (the Swin-L one included) and 3 serving modes, 12 (+ 12) a
     # call, and the window-32 train step under remat, 24 + 12
@@ -1932,7 +1970,40 @@ def bench_phase(card):
     for line in lines:
         log(f"[bench] {line} ({card})")
     log(f"[bench] UVHAND_BENCH_SCAN={BENCH_SCAN}: launches "
-        f"{json.dumps({k: v for k, v in counts.items() if v})}; phase 17 took "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; its run took "
+        f"{time.perf_counter() - t_phase:.2f} s of wall clock")
+
+    t0 = time.perf_counter()
+    traces = os.path.join(CLI_DIR, "bench_traces")
+    shutil.rmtree(traces, ignore_errors=True)
+    stdout, knob_counts = launched(
+        "bench knobs", [sys.executable, "-m", "uvhand_tpu_torch.bench"], BENCH_TIMEOUT_S,
+        UVHAND_BENCH_SCAN=str(BENCH_SCAN), UVHAND_BENCH_PROFILE=traces, UVHAND_BENCH_SR="1",
+        UVHAND_BENCH_REMAT="1", UVHAND_BENCH_EXTRA_MODES="0", UVHAND_BENCH_LITE="0",
+        UVHAND_BENCH_INFER="0")
+    rows = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    metrics = [r.get("metric") for r in rows]
+    if metrics != ["train_frames_per_sec_chip", "train_frames_per_sec_chip_fp32"]:
+        raise AssertionError(f"[bench knobs] lines {rows}")
+    for r in rows:
+        sr = r["metric"].startswith("train_") and r["dtype"] == "bfloat16"
+        if not (np.isfinite(r["value"]) and r["value"] > 0 and r["remat"] is True
+                and os.path.getsize(r["trace"]) > 0
+                and (r.get("sr"), r.get("param_dtypes")) == (
+                    (True, ["torch.bfloat16"]) if sr else (None, None))):
+            raise AssertionError(f"[bench knobs] row {r}")
+    calls = 1 + 2 * BENCH_SCAN  # the warm-up, the timed calls, the profiled ones
+    want = expected(staged({"msda_fwd": 2 * 2 * MSDA_PER_FORWARD * calls,
+                            "msda_bwd": 2 * MSDA_PER_FORWARD * calls}))
+    if knob_counts != want:
+        raise AssertionError(f"[bench knobs] launches {knob_counts}, expected {want}")
+    for r in rows:
+        log(f"[bench knobs] {json.dumps(r)} ({card})")
+    log(f"[bench knobs] UVHAND_BENCH_PROFILE, _SR=1, _REMAT=1, _EXTRA_MODES=0 (and _LITE=0, "
+        f"_INFER=0: the two train lines, to keep the phase short): a trace a line "
+        f"({sum(os.path.getsize(r['trace']) for r in rows)} bytes), bf16 parameters on the SR "
+        f"lines, launches {json.dumps({k: v for k, v in knob_counts.items() if v})}; its run "
+        f"took {time.perf_counter() - t0:.2f} s; phase 17 took "
         f"{time.perf_counter() - t_phase:.2f} s of wall clock")
     return counts
 
@@ -2784,6 +2855,238 @@ def export_phase(card):
     return runs
 
 
+# ------------------------------------------------------------ 24. the scripts
+
+SCRIPTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "scripts_smoke")
+
+
+def counted(fn, want_of):
+    """Run `fn()` with the counts at 0; its launches must be `want_of(its
+    result)` -> (the result, the launches)."""
+    reset_counts()
+    res = fn()
+    got, want = read_counts(), expected(want_of(res))
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    return res, got
+
+
+def scripts_phase(card):
+    """Phase 24: the measurement scripts of `uvhand_tpu_torch/scripts/` on
+    the card, each called as its `main` with its flags.
+      - `bench_msda` at B=16 (Lq = S = 1045), fp32 and bf16, uniform and
+        `--local` locations, `--mode both`: ms a call, device ms, bound and
+        `max |kernel - plain|` of the output and the three gradients, each
+        within TOL of the plain version's max; one staged forward launch a
+        call and one staged backward a gradient call (the script's own
+        count of its calls), none general;
+      - `profile_step --steps 2`, bf16 and fp32: its categories, the MSDA
+        share, device ops a step and busy share; 12 + 12 staged launches a
+        step (the warm-up, 2 timed, 2 profiled);
+      - `bench_epoch --frames 64 --workers 4` (bf16, the disk loader into
+        the fused step: 6 steps of 12 + 12), and `--host_only`;
+      - `ab_enc_lite --eval_metrics` (dense and lite3) and `ab_temporal`
+        (none, lstm, vivit at window 8) with one chunk of one step each and
+        the held-out eval: finite losses, the summary's keys.
+    Each run's wall clock is logged. -> the launches of each run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        for local in (False, True):
+            t0 = time.perf_counter()
+            argv = ["--dtype", dtype, "--mode", "both"] + (["--local"] if local else [])
+            res, runs[f"bench_msda {dtype}{' local' if local else ''}"] = counted(
+                lambda: bench_msda.main(argv),
+                lambda r: staged({"msda_fwd": r["calls"]["fwd"] + r["calls"]["grad"],
+                                  "msda_bwd": r["calls"]["grad"]}))
+            tol = TOL[bench_msda.DTYPES[dtype]]
+            if not all(e <= tol for e in res["max_rel_err"].values()):
+                raise AssertionError(f"[scripts] bench_msda {argv}: kernel against plain "
+                                     f"{res['max_rel_err']} of the plain maxima, TOL {tol}")
+            log(f"[scripts] bench_msda {dtype}{' --local' if local else ''} B=16 Lq=S=1045: "
+                f"fwd {res['fwd_ms']:.4f} ms/call (device {ms_or_not(res['fwd_device_ms'])}), "
+                f"bound {res['bound_ms']:.4f} ({res['bound_by']}); fwd+bwd "
+                f"{res['grad_ms']:.4f} ms/call (device {ms_or_not(res['grad_device_ms'])}), "
+                f"bound {res['grad_bound_ms']:.4f}; max |kernel - plain| "
+                f"{json.dumps(res['max_abs_err'])} (of the plain maxima "
+                f"{json.dumps(res['max_rel_err'])}, TOL {tol}); calls {json.dumps(res['calls'])}; "
+                f"{time.perf_counter() - t0:.2f} s ({card})")
+    for fp32 in (False, True):
+        t0 = time.perf_counter()
+        tag = "fp32" if fp32 else "bf16"
+        argv = ["--steps", "2", "--logdir", os.path.join(SCRIPTS_DIR, f"profile_{tag}"),
+                "--top", "8"] + (["--fp32"] if fp32 else [])
+        rep, runs[f"profile_step {tag}"] = counted(lambda: profile_step.main(argv),
+                                                  lambda _: expected(TRAIN, 5))
+        if rep["source"] != "device" or not rep["by_category"]:
+            raise AssertionError(f"[scripts] profile_step {tag}: no device time: {rep}")
+        log(f"[scripts] profile_step {tag} (B=16, 2 profiled steps): device "
+            f"{rep['total_us'] / 2e3:.3f} ms a step, {rep['ops_per_step']:.1f} device ops a "
+            f"step, busy {rep['busy_share'] * 100:.2f} % of the profiled steps' wall clock "
+            f"({rep['meta']['profiled_ms'] / 2:.2f} ms a step; unprofiled "
+            f"{rep['meta']['wall_ms']:.2f}); MSDA {rep['msda_share'] * 100:.2f} %; by category "
+            f"{json.dumps({k: round(v / rep['total_us'], 4) for k, v in rep['by_category'].items()})}"
+            f"; top {json.dumps([(n[:60], round(us, 1)) for n, _, us in rep['top'][:5]])}; "
+            f"{time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    (row,), runs["bench_epoch"] = counted(
+        lambda: bench_epoch.main(["--frames", "64", "--workers", "4"]),
+        lambda _: expected(TRAIN, 6))
+    if not (row["metric"] == "epoch_frames_per_sec" and np.isfinite(row["value"])
+            and row["value"] > 0 and row["steps"] == 4):
+        raise AssertionError(f"[scripts] bench_epoch: {row}")
+    (host,), runs["bench_epoch --host_only"] = counted(
+        lambda: bench_epoch.main(["--frames", "64", "--workers", "4", "--host_only"]),
+        lambda _: {})
+    log(f"[scripts] bench_epoch (64 frames of 840x600 JPEGs, 4 thread workers, bf16, B=16): "
+        f"{json.dumps(row)}; --host_only {json.dumps(host)}; "
+        f"{time.perf_counter() - t0:.2f} s ({card})")
+    t0 = time.perf_counter()
+    ab, runs["ab_enc_lite"] = counted(
+        lambda: ab_enc_lite.main(["--chunks", "1", "--scan", "1", "--eval_metrics",
+                                  "--train_batches", "1"]),
+        lambda _: expected(staged({"msda_fwd": 2 * MSDA_PER_FORWARD * (1 + 2),
+                                   "msda_bwd": 2 * MSDA_PER_FORWARD})))
+    tab, runs["ab_temporal"] = counted(
+        lambda: ab_temporal.main(["--chunks", "1", "--scan", "1"]),
+        lambda _: expected(staged({"msda_fwd": 3 * MSDA_PER_FORWARD * (1 + 2),
+                                   "msda_bwd": 3 * MSDA_PER_FORWARD})))
+    for name, summary, variants in (("ab_enc_lite", ab, ["dense", "lite3"]),
+                                    ("ab_temporal", tab, ["none", "lstm", "vivit"])):
+        if summary["variants"] != variants or not all(
+                np.isfinite(v) for n in variants for v in summary[n]["last60_mean"].values()):
+            raise AssertionError(f"[scripts] {name}: {summary}")
+        log(f"[scripts] {name}: {json.dumps(summary)[:1500]} ({card})")
+    log(f"[scripts] the A/B scripts took {time.perf_counter() - t0:.2f} s; phase 24 took "
+        f"{time.perf_counter() - t_phase:.2f} s of wall clock")
+    return runs
+
+
+# ------------------------------------------------------------ 25. the model axis
+
+MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mp_smoke")
+MP_STEPS = 2
+#: one process of the (dp 1, mp 2) mesh on the one card: gloo over CUDA tensors
+#: (NCCL takes one rank a device)
+_MP_WORKER = """
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as c
+from uvhand_tpu_torch import engine
+from uvhand_tpu_torch.train import launch, mesh
+from uvhand_tpu_torch.train.state import create_optimizer
+
+rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+launch.init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+                      timeout_s=300)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+grid = mesh.make_mesh(2, "cuda")
+model, world = c.build_world("cuda")
+optimizer = create_optimizer(model)
+shards = mesh.shard_state(grid, model, optimizer)
+held = {mesh.whole_name(n): list(p.shape) for n, p in model.named_parameters()
+        if hasattr(p, "mp_shard")}
+step = engine.make_fused_train_step(
+    model, *world, optimizer, img_res=c.IMG_RES,
+    generator=torch.Generator(device="cuda").manual_seed(mesh.process_seed(c.SEED, grid.dp_rank)),
+    process_group=grid.dp_group, model_group=grid.mp_group)
+batches = [c.synthetic_batch(np.random.default_rng(c.SEED), world[2], c.BATCH)] * c.MP_STEPS
+lds = [{k: float(v) for k, v in step(b).items()} for b in batches]
+whole = mesh.whole_state_dict(model)
+if rank == 0:
+    torch.save({"lds": lds, "held": held, "sharded": sorted(shards),
+                "params": {k: v.cpu() for k, v in whole.items()}}, out)
+print(json.dumps({"rank": rank, "mp_rank": grid.mp_rank, "lds": lds}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def mp_phase(card):
+    """Phase 25: `--mp 2` on the one card: two processes, gloo over CUDA
+    tensors (NCCL takes one rank a device), a (dp 1, mp 2) mesh, arctic_sf
+    at full width fp32, its train state sharded by the JAX rule
+    (`train/mesh.py::shard_state`); MP_STEPS fused steps on one synthetic
+    batch, held against the same steps in one process: every loss term of
+    the first step and the clip's global norm within 1e-4 (relative; the
+    backward's dvalue atomics move the last bits), every later loss finite
+    (their weights are an Adam step apart wherever the atomics moved a
+    near-zero gradient's sign: their largest difference is logged), each
+    sharded weight half its rows on each process, 12 + 12 staged launches a
+    step in each process; the sharded parameters' largest difference after
+    the steps is logged, not checked."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(MP_DIR, exist_ok=True)
+    out = os.path.join(MP_DIR, "rank0.pt")
+    shutil.rmtree(os.path.join(MP_DIR, "launches"), ignore_errors=True)
+    port = 29731
+    code = _MP_WORKER.replace("c.MP_STEPS", str(MP_STEPS))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port), out], cwd=REPO,
+                              text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              start_new_session=True,
+                              env={**os.environ, "PYTHONPATH": REPO,
+                                   msda_cuda.COUNTS_DIR_ENV: os.path.join(MP_DIR, "launches")})
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=LAUNCH_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.communicate()
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode:
+            raise AssertionError(f"[mp] a process exited with {p.returncode}:\n{o[-2000:]}\n"
+                                 f"{e[-4000:]}")
+    t_two = time.perf_counter() - t_phase
+    got = torch.load(out, weights_only=False)
+    # the same steps in one process
+    model, world = build_world("cuda")
+    step = engine.make_fused_train_step(model, *world, create_optimizer(model), img_res=IMG_RES,
+                                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    batch = synthetic_batch(np.random.default_rng(SEED), world[2], BATCH)
+    lds = [{k: float(v) for k, v in step(batch).items()} for _ in range(MP_STEPS)]
+    # the first step starts from the same weights: every term and the norm;
+    # the later ones from weights an Adam step apart wherever the dvalue
+    # atomics moved a near-zero gradient's sign, which the matcher and the
+    # top-k can amplify: finite, their distance logged
+    a, b = got["lds"][0], lds[0]
+    bad = {k: (a[k], b[k]) for k in b if abs(a[k] - b[k]) > 1e-4 * max(abs(b[k]), 1.0)}
+    if bad or not all(np.isfinite(v) for r in got["lds"] for v in r.values()):
+        raise AssertionError(f"[mp] mp 2 against one process: {bad}; {got['lds']}")
+    moved = max(abs(got["lds"][-1][k] - v) / max(abs(v), 1e-30)
+                for k, v in lds[-1].items())
+    errs = {n: float((got["params"][n] - p.detach().cpu()).abs().max()
+                     / p.detach().abs().max().clamp_min(1e-30).cpu())
+            for n, p in model.named_parameters() if n in got["sharded"]}
+    shapes = dict(model.named_parameters())
+    for n, held in got["held"].items():
+        whole = list(shapes[n].shape)
+        if np.prod(held) * 2 != np.prod(whole):
+            raise AssertionError(f"[mp] {n}: held {held} of {whole}")
+    counts = dict.fromkeys(KERNELS, 0)
+    for name in os.listdir(os.path.join(MP_DIR, "launches")):
+        with open(os.path.join(MP_DIR, "launches", name)) as f:
+            for k, v in json.load(f).items():
+                counts[k] += v
+    if counts != expected(TRAIN, 2 * MP_STEPS):
+        raise AssertionError(f"[mp] launches {counts}, expected {expected(TRAIN, 2 * MP_STEPS)}")
+    log(f"[mp] --mp 2 on one card (gloo over CUDA tensors, dp 1 x mp 2, fp32 arctic_sf, B=16): "
+        f"{len(got['sharded'])} parameters sharded, each process half their rows; "
+        f"the first step's losses within 1e-4 of one process's; {MP_STEPS} steps: "
+        f"{json.dumps([{k: r[k] for k in ('total', 'grad_norm')} for r in got['lds']])} against "
+        f"{json.dumps([{k: r[k] for k in ('total', 'grad_norm')} for r in lds])} (the last "
+        f"step's terms at most {moved:.3e} apart, relative); the sharded "
+        f"parameters' largest difference after the steps {max(errs.values()):.3e} of their max "
+        f"(Adam's steps of near-zero gradients; not checked); launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; the two processes took "
+        f"{t_two:.2f} s, the phase {time.perf_counter() - t_phase:.2f} s ({card})")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
@@ -2921,6 +3224,12 @@ def main() -> int:
     # local_fm model fed from them, the visualization
     export_runs = export_phase(card)
 
+    # 24. the measurement scripts: bench_msda, profile_step, bench_epoch, the A/B studies
+    scripts_runs = scripts_phase(card)
+
+    # 25. --mp 2 on the one card (gloo over CUDA tensors), against one process
+    mp_counts = mp_phase(card)
+
     def per_call(t, dtype, kind=None):
         # a forward or a backward calls its kernel 6 times at each of the two shapes
         enc, dec = f"encoder {dtype}", f"decoder {dtype}"
@@ -2999,7 +3308,10 @@ def main() -> int:
                 "cli_extraction_mode": export_runs["--extraction_mode submit_pose"][name],
                 "cli_extract": export_runs["--extract"][name],
                 "serve_local_fm": export_runs["local_fm serving batches"][name],
-                "cli_visualization": export_runs["--eval --visualization"][name]}
+                "cli_visualization": export_runs["--eval --visualization"][name],
+                **{f"scripts_{tag.replace(' ', '_')}": n[name]
+                   for tag, n in scripts_runs.items()},
+                "train_mp2_two_processes": mp_counts[name]}
 
     def gather_row(op, kind, timed_, errs, launches, replaces):
         bf16 = per_call(timed_, "bf16", kind)

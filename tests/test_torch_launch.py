@@ -576,26 +576,32 @@ def test_two_ranks_sum_the_gradient_once(two_ranks):
 def test_two_ranks_keep_the_parameters_of_the_one_process_run(two_ranks):
     """After 2 AdamW steps the parameters are equal on both ranks (their
     digest), and agree with the one-process run as `tests/test_torch_train.py`
-    holds the port's run against JAX's after 3 steps: Adam's step divides
-    each element's gradient by its own magnitude, so an element whose
-    gradient lies under 10x its group's gradient tolerance of its tensor's
-    max in some step (at most 60 % of them) has no well-defined step and is
-    masked; outside the backbone the rest agree to 5e-2 lr (99 %: 5e-3
-    lr), in it to 2 lr (99 %: 5e-2 lr)."""
+    holds the port's run against JAX's after 3 steps (`assert_adam_close`)."""
     ranks, one, _ = two_ranks
     assert ranks[0]["digest"] == ranks[1]["digest"]
+    assert_adam_close(ranks[0]["params"], one["params"], one["grads"], one["labels"])
+
+
+def assert_adam_close(params, want_params, grads, labels):
+    """`params` after AdamW steps against `want_params`, whose steps took
+    the gradients `grads` (one dict a step): Adam's step divides each
+    element's gradient by its own magnitude, so an element whose gradient
+    lies under 10x its group's gradient tolerance of its tensor's max in
+    some step (at most 60 % of them) has no well-defined step and is
+    masked; outside the backbone the rest agree to 5e-2 lr (99 %: 5e-3
+    lr), in it to 2 lr (99 %: 5e-2 lr)."""
     errs, masked, total = {g: [] for g in LR}, 0, 0
-    for name, want in one["params"].items():
-        group = one["labels"][name]
+    for name, want in want_params.items():
+        group = labels[name]
         floor, zero = torch.zeros_like(want, dtype=torch.bool), torch.ones_like(want,
                                                                                 dtype=torch.bool)
-        for g in one["grads"]:
+        for g in grads:
             a = g[name].abs()
             floor |= a < 10 * GRAD_TOL[group] * max(float(a.max()), 1e-30)
             zero &= a == 0
         floor &= ~zero
         ulps = 2 * np.spacing(want.abs().numpy())
-        err = np.maximum((ranks[0]["params"][name] - want).abs().numpy() - ulps, 0) / LR[group]
+        err = np.maximum((params[name] - want).abs().numpy() - ulps, 0) / LR[group]
         errs[group].append(err[~floor.numpy()])
         masked += int(floor.sum())
         total += floor.numel()

@@ -27,7 +27,9 @@ temporal train step (`train_frames_per_sec_chip_window32`: one window of 32
 frames from `TempoTrainDataset` on a synthetic root of max(32 + 22, B + 1)
 frames, bf16, remat, frames/s counting all 32 frames), the bf16 train step
 of the same model on the Swin-L backbone (`train_frames_per_sec_chip_swin`,
-the reference's `swin_L_384_22k`), fp32 serving.
+the reference's `swin_L_384_22k`), fp32 serving. The window-32 and Swin-L
+rows carry a `note` (BASELINE config 3 and config 2) and no `vs_baseline`,
+as in the root bench: the A100 estimate is arctic_sf on the R50 at B=16.
 
 A time is the host clock over UVHAND_BENCH_SCAN (default 120) steps or
 batches after a warm-up one (which builds the kernels and the
@@ -46,8 +48,22 @@ frames' targets only, `center_index`; the serving lines, which need every
 frame's camera, are skipped then), UVHAND_BENCH_TEMPORAL=lstm|vivit (the
 in-model temporal head over the windows, on every window batch's model).
 Remat is on where a batch holds 24 frames or more, as the root bench
-selects it. Every line names its model and backbone. TF32 is off on the
-card, as in the CLI.
+selects it; UVHAND_BENCH_REMAT=0|1 overrides that choice on every line.
+UVHAND_BENCH_SR=1 trains the bf16 train lines with bfloat16 parameters and
+stochastic-rounded updates (`param_dtype=torch.bfloat16`,
+`train/state.py::SRAdamW`); UVHAND_BENCH_ENC_LITE=1 puts enc_lite on every
+line (hi_every UVHAND_BENCH_ENC_LITE_HI, default 3; the enc_lite lines keep
+theirs); UVHAND_BENCH_EXTRA_MODES=0 drops the window-32 and Swin-L lines,
+which a UVHAND_BENCH_WINDOW run drops too. UVHAND_BENCH_PROFILE=<logdir>:
+after a line's timed run, the same program runs again as many times under
+torch.profiler, and its trace goes to
+`<logdir>/<dtype>/<metric>.json` (a serving line's to
+`<logdir>/infer_<dtype>/`, the root bench's directories); the value printed
+is the unprofiled run's, and the row names the trace. The root bench's
+UVHAND_BENCH_S2D has no counterpart: the port has no `stem_s2d` (a TPU
+rewrite of the same stem). Every line names its model, backbone, remat and
+dtype, and `sr` and `enc_lite` where they are set. TF32 is off on the card,
+as in the CLI.
 
 The reference publishes no throughput (BASELINE.md). `vs_baseline` is
 against REFERENCE_FPS_ESTIMATE, an estimate of the CUDA reference's train
@@ -68,12 +84,18 @@ import os
 import tempfile
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 import torch
 
 REFERENCE_FPS_ESTIMATE = 140.0  # frames/s per A100, train step (see the docstring)
 WARMUP = 1
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+#: the rows of other configurations than the estimate's, with the root bench's notes
+NOTES = {"train_frames_per_sec_chip_window32": "BASELINE config-3 temporal train, remat",
+         "train_frames_per_sec_chip_swin": "BASELINE config-2 backbone"}
 
 
 def _emit(obj) -> None:
@@ -143,15 +165,17 @@ class Bench:
 
     def __init__(self, args, device, batch_size: int, steps: int,
                  model_name: str = "deformable_detr", backbone: str = "resnet50",
-                 window: int = 0, split_window: bool = True, temporal: str = "none"):
+                 window: int = 0, split_window: bool = True, temporal: str = "none",
+                 remat: Optional[bool] = None, enc_lite_hi: int = 0, profile: str = ""):
         from .geometry import mano, objects
 
         self.args, self.device, self.steps = args, device, steps
         self.dino, self.backbone = model_name == "dino", backbone
         self.window, self.temporal = window, temporal if window else "none"
+        self.enc_lite_hi, self.profile = enc_lite_hi, profile
         batch = first_batch(args, batch_size, window, split_window)
         self.frames = int(batch["images"].shape[0])
-        self.remat = self.frames >= 24
+        self.remat = self.frames >= 24 if remat is None else remat
         # serving needs every frame's camera and object index
         self.serves = batch["intrinsics"].shape[0] == self.frames
         self.batch = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
@@ -159,13 +183,18 @@ class Bench:
                       mano.synthetic_mano(1, False, device=device),
                       objects.synthetic_object_bank(2, device=device))
 
-    def model(self, dtype: torch.dtype, enc_lite_hi: int = 0):
+    def model(self, dtype: torch.dtype, enc_lite_hi: int = 0, sr: bool = False):
+        """The model in `dtype` compute; enc_lite with `enc_lite_hi` (else
+        the run's `UVHAND_BENCH_ENC_LITE` choice); bfloat16 parameters with
+        `sr`."""
         from .models.detr import UVHandDETR
 
         a = self.args
+        enc_lite_hi = enc_lite_hi or self.enc_lite_hi
         return UVHandDETR(num_queries=a.num_queries, d_model=a.hidden_dim, n_heads=a.nheads,
                           num_encoder_layers=a.enc_layers, num_decoder_layers=a.dec_layers,
                           dim_feedforward=a.dim_feedforward, compute_dtype=dtype,
+                          param_dtype=torch.bfloat16 if sr else torch.float32,
                           enc_lite=enc_lite_hi > 0, enc_lite_hi_every=enc_lite_hi or 3,
                           dino_variant=self.dino, use_dn=self.dino,
                           look_forward_twice=self.dino, backbone=self.backbone,
@@ -173,9 +202,11 @@ class Bench:
                           temporal_window=self.window if self.temporal != "none" else 0,
                           generator=torch.Generator().manual_seed(0), device=self.device)
 
-    def _timed(self, one) -> float:
+    def _timed(self, one, trace: str = "") -> float:
         """Seconds of `self.steps` calls of `one(i)` after WARMUP ones; each
-        returns a 0-d tensor, all of which must be finite."""
+        returns a 0-d tensor, all of which must be finite. With a `trace`
+        path, the same calls then run again under torch.profiler, whose
+        trace goes there; the time returned is the unprofiled run's."""
         out = [one(i) for i in range(WARMUP)]
         self._sync()
         t0 = time.perf_counter()
@@ -184,24 +215,46 @@ class Bench:
         dt = time.perf_counter() - t0
         if not bool(torch.isfinite(torch.stack(out).float()).all()):
             raise FloatingPointError(f"non-finite results: {out}")
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            with profile(activities=activities) as prof:
+                for i in range(self.steps):
+                    one(WARMUP + self.steps + i)
+                self._sync()
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+            prof.export_chrome_trace(trace)
         return dt
+
+    def trace(self, metric: str, dtype: torch.dtype) -> str:
+        """Where a line's trace goes under UVHAND_BENCH_PROFILE (else "")."""
+        if not self.profile:
+            return ""
+        where = ("infer_" if metric.startswith("infer_") else "") + DTYPE_NAMES[dtype]
+        return os.path.join(self.profile, where, f"{metric}.json")
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train(self, dtype: torch.dtype, enc_lite_hi: int = 0) -> float:
-        """Frames/s of the fused train step in `dtype` compute."""
+    def train(self, dtype: torch.dtype, enc_lite_hi: int = 0, sr: bool = False,
+              trace: str = "") -> float:
+        """Frames/s of the fused train step in `dtype` compute (bfloat16
+        parameters, stochastic-rounded updates with `sr`)."""
         from . import engine
         from .train.state import create_optimizer
 
-        model = self.model(dtype, enc_lite_hi)
+        model = self.model(dtype, enc_lite_hi, sr)
         step = engine.make_fused_train_step(
             model, *self.world, create_optimizer(model), img_res=float(self.args.img_res),
             generator=torch.Generator(device=self.device).manual_seed(0), device=self.device)
-        return self.frames * self.steps / self._timed(lambda i: step(self.batch)["total"])
+        self.param_dtypes = sorted({str(p.dtype) for p in model.parameters()})
+        return self.frames * self.steps / self._timed(lambda i: step(self.batch)["total"], trace)
 
-    def infer(self, dtype: torch.dtype, enc_lite_hi: int = 0, repeat: int = 1) -> float:
+    def infer(self, dtype: torch.dtype, enc_lite_hi: int = 0, repeat: int = 1,
+              trace: str = "") -> float:
         """Frames/s of serving: image -> decoded MANO and object meshes and
         camera-space joints, no GT (the root bench's `measure_infer`); the
         batch `repeat` times over."""
@@ -220,7 +273,7 @@ class Bench:
                                       float(self.args.img_res))
             return pred["mano.j3d.cam.r"].sum()
 
-        return self.frames * repeat * self.steps / self._timed(one)
+        return self.frames * repeat * self.steps / self._timed(one, trace)
 
 
 def main(argv=None) -> None:
@@ -246,58 +299,89 @@ def main(argv=None) -> None:
     temporal = env("UVHAND_BENCH_TEMPORAL", "") or "none"
     split = env("UVHAND_BENCH_SPLIT", "1") == "1"
     steps = int(env("UVHAND_BENCH_SCAN", 120))
-    bench = Bench(args, device, batch_size, steps, model_name, backbone, window, split, temporal)
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    remat = {"": None, "0": False, "1": True}[env("UVHAND_BENCH_REMAT", "")]
+    sr = env("UVHAND_BENCH_SR", "") == "1"
+    # the root bench's measure() reads ENC_LITE_HI with a default of 3
+    all_lite_hi = int(env("UVHAND_BENCH_ENC_LITE_HI", "3")) if env(
+        "UVHAND_BENCH_ENC_LITE", "") == "1" else 0
+    profile = env("UVHAND_BENCH_PROFILE", "")
+    knobs = dict(remat=remat, enc_lite_hi=all_lite_hi, profile=profile)
+    bench = Bench(args, device, batch_size, steps, model_name, backbone, window, split, temporal,
+                  **knobs)
     card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     where = {"batch": bench.frames, "model": model_name, "backbone": backbone, "device": card,
              "remat": bench.remat}
     if window:
         where.update(window=window, split_window=split, temporal_head=bench.temporal)
+    if all_lite_hi:
+        where.update(enc_lite=True, enc_lite_hi_every=all_lite_hi)
+
+    def train_line(dtype, enc_lite_hi=0, on=bench):
+        """(the train step's rate, the row's knobs): bf16 lines take SR."""
+        def run(metric):
+            with_sr = sr and dtype == torch.bfloat16
+            v = on.train(dtype, enc_lite_hi, with_sr, on.trace(metric, dtype))
+            return v, {"sr": True, "param_dtypes": on.param_dtypes} if with_sr else {}
+        return run
+
+    def infer_line(dtype, enc_lite_hi=0, repeat=1):
+        def run(metric):
+            return bench.infer(dtype, enc_lite_hi, repeat, bench.trace(metric, dtype)), {}
+        return run
+
+    def emit_row(metric, run, meta):
+        v, extra = run(metric)
+        row = {"metric": metric, "value": v, "unit": "frames/s", **where, **meta, **extra}
+        if metric in NOTES:
+            row["note"] = NOTES[metric]
+        elif metric.startswith("train_"):
+            row["vs_baseline"] = v / REFERENCE_FPS_ESTIMATE
+        if profile:
+            row["trace"] = bench.trace(metric, DTYPES[row["dtype"]])
+        _emit(row)
 
     if env("UVHAND_BENCH_ONLY", "") == "infer":
         dt = only_dtype or "bfloat16"
-        _emit({"metric": "infer_frames_per_sec_chip", "unit": "frames/s",
-               "value": bench.infer(dtypes[dt]), "dtype": dt, **where})
+        emit_row("infer_frames_per_sec_chip", infer_line(DTYPES[dt]), {"dtype": dt})
         return
 
     # the headline: measured first, printed first, flushed
     dt = only_dtype or "bfloat16"
-    fps = bench.train(dtypes[dt])
-    _emit({"metric": "train_frames_per_sec_chip", "value": fps, "unit": "frames/s",
-           "vs_baseline": fps / REFERENCE_FPS_ESTIMATE, "dtype": dt, **where})
+    emit_row("train_frames_per_sec_chip", train_line(DTYPES[dt]), {"dtype": dt})
     if only_dtype:
         return
 
     lite = {"dtype": "bfloat16", "mode": "enc_lite", "enc_lite_hi_every": hi}
-    extras = [("train_frames_per_sec_chip_fp32", lambda: bench.train(torch.float32),
+    extras = [("train_frames_per_sec_chip_fp32", train_line(torch.float32),
                {"dtype": "float32"})]
     if env("UVHAND_BENCH_LITE", "1") == "1":
-        extras += [("train_frames_per_sec_chip_enc_lite",
-                    lambda: bench.train(torch.bfloat16, hi), lite),
+        extras += [("train_frames_per_sec_chip_enc_lite", train_line(torch.bfloat16, hi), lite),
                    ("infer_frames_per_sec_chip_enc_lite",
-                    lambda: bench.infer(torch.bfloat16, hi, repeat=4),
-                    {**lite, "batch": 4 * bench.frames})]
+                    infer_line(torch.bfloat16, hi, repeat=4), {**lite, "batch": 4 * bench.frames})]
     infer = env("UVHAND_BENCH_INFER", "1") == "1"
     if infer:
-        extras.append(("infer_frames_per_sec_chip", lambda: bench.infer(torch.bfloat16),
+        extras.append(("infer_frames_per_sec_chip", infer_line(torch.bfloat16),
                        {"dtype": "bfloat16"}))
-    if not window:
+    # BASELINE config 3 and config 2, as the root bench adds them: not beside
+    # a window batch, and not with UVHAND_BENCH_EXTRA_MODES=0
+    if env("UVHAND_BENCH_EXTRA_MODES", "1") == "1" and not window:
         w32_meta = {"dtype": "bfloat16", "mode": "window32", "window": 32,
                     "split_window": split}
 
-        def window32():
+        def window32(metric):
             w32 = Bench(args, device, batch_size, steps, model_name, backbone, 32, split,
-                        temporal)
+                        temporal, **knobs)
             w32_meta.update(batch=w32.frames, remat=w32.remat, temporal_head=w32.temporal)
-            return w32.train(torch.bfloat16)
+            return train_line(torch.bfloat16, on=w32)(metric)
 
         extras.append(("train_frames_per_sec_chip_window32", window32, w32_meta))
-    swin = copy.copy(bench)
-    swin.backbone = "swin_L_384_22k"
-    extras.append(("train_frames_per_sec_chip_swin", lambda: swin.train(torch.bfloat16),
-                   {"dtype": "bfloat16", "mode": "swin_L_384_22k", "backbone": swin.backbone}))
+        swin = copy.copy(bench)
+        swin.backbone = "swin_L_384_22k"
+        extras.append(("train_frames_per_sec_chip_swin", train_line(torch.bfloat16, on=swin),
+                       {"dtype": "bfloat16", "mode": "swin_L_384_22k",
+                        "backbone": swin.backbone}))
     if infer:
-        extras.append(("infer_frames_per_sec_chip_fp32", lambda: bench.infer(torch.float32),
+        extras.append(("infer_frames_per_sec_chip_fp32", infer_line(torch.float32),
                        {"dtype": "float32"}))
     for metric, fn, meta in extras:
         if metric.startswith("infer_") and not bench.serves:
@@ -309,15 +393,10 @@ def main(argv=None) -> None:
                    "elapsed_s": time.monotonic() - t_start})
             continue
         try:
-            v = fn()
+            emit_row(metric, fn, meta)
         except Exception as e:  # an extra must never cost the headline or the others
             traceback.print_exc()
             _emit({"metric": metric, "error": f"{type(e).__name__}: {e}"[:200]})
-            continue
-        row = {"metric": metric, "value": v, "unit": "frames/s", **where, **meta}
-        if metric.startswith("train_"):
-            row["vs_baseline"] = v / REFERENCE_FPS_ESTIMATE
-        _emit(row)
 
 
 if __name__ == "__main__":

@@ -52,8 +52,9 @@ batches it (`data/loader.py`), trains with a checkpoint each epoch
 reference `.pth`, `--resume_dir` a sweep) and evaluates with the default
 metric set, the sequence metrics MDev and ACC included. Every flag of the
 JAX CLI is taken with its default; `--device` means the card unless it is
-`cpu`. An option this port does not run (`--mp > 1`) exits with a message
-naming its ROADMAP item (`UNPORTED`); none is ignored silently.
+`cpu`. An option this port does not run would exit with a message naming
+its ROADMAP item (`UNPORTED`, empty: the port runs every option of the
+JAX CLI); none is ignored silently.
 `--feature_type global_fm|local_fm` exits too: the JAX CLI fails on it
 (ROADMAP Queue 3), and the feature path runs through the Python API.
 
@@ -82,6 +83,17 @@ sizes, split over the processes; each step's loss is the global batch's,
 as in the JAX package (`engine.make_fused_train_step`); only rank 0 prints
 and writes checkpoints and results. `--world_size`, `--rank`, `--dist_url`
 and `--dist_backend` are taken and ignored, as the JAX CLI does.
+
+`--mp N` puts the processes on a (dp, mp) mesh, dp = processes // mp
+(`train/mesh.py::make_mesh`; it exits where they do not divide), and the
+arctic route's train state is sharded by the JAX package's rule
+(`shard_state`): the batch splits over dp, the large non-backbone 2-D
+weights and their optimizer state over mp. As in the JAX CLI, only that
+route's state is sharded, and `run_coco` ignores `--mp`; the export routes
+and `--eval --visualization`, which run on rank 0 alone, read the whole
+weights. On the CPU, 4 processes at mp 2:
+
+  torchrun --nproc_per_node 4 -m uvhand_tpu_torch.cli.main --device cpu --mp 2 ...
 """
 
 from __future__ import annotations
@@ -273,8 +285,7 @@ def get_args_parser():
 
 
 UNPORTED = (
-    # (is the option given?, what it is, its ROADMAP Queue 1 item)
-    (lambda a: a.mp > 1, "--mp > 1", "item 6b (model parallelism)"),
+    # (is the option given?, what it is, its ROADMAP Queue 1 item); none left
 )
 #: the datasets of the COCO-format route (`run_coco`)
 COCO_DATASETS = ("AssemblyHands", "H2O", "FPHA")
@@ -473,6 +484,10 @@ def main(args) -> dict:
                 json.dump(vars(args), f, indent=2, default=str)
     check_ported(args)
     check_feature_type(args)
+    if args.dataset_file not in COCO_DATASETS:  # run_coco ignores --mp, as the JAX CLI's
+        why = mesh.check_axes(world_size, args.mp)
+        if why:
+            raise SystemExit(f"uvhand_tpu_torch: {why}")
     device = resolve_device(args.device)
     if mesh.active() and device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())  # this process's card
@@ -500,6 +515,7 @@ def main(args) -> dict:
     mesh.broadcast_params(model)  # seeded alike everywhere; rank 0's are the run's
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model params: {n_params / 1e6:.1f}M")
+    grid = mesh.make_mesh(args.mp, device.type)
 
     root = os.path.join(args.coco_path, args.dataset_file)
     kp3d_cano = bank.kp_bottom.cpu().numpy()
@@ -512,7 +528,8 @@ def main(args) -> dict:
         focal_length=args.focal_length, kp3d_cano=kp3d_cano,
         two_stage=args.two_stage, seq=args.seq, viewpoint=args.test_viewpoint,
         native_images=args.native_loader)
-    shard = dict(rank=rank, world_size=world_size)  # this process's rows of each batch
+    # this process's rows of each batch: the mp processes of a dp row take the same
+    shard = dict(rank=grid.dp_rank, world_size=grid.dp)
     if args.method == "arctic_lstm" and not args.eval and not args.train_smoothnet:
         # a window of --window_size frames centred on each frame (TempoDataset),
         # batch_size // window_size windows a step flattened to frames; each
@@ -557,13 +574,21 @@ def main(args) -> dict:
     if args.resume:
         restore(args.resume)
         print(f"resumed from {args.resume}")
+    whole_only = args.extract or args.extraction_mode or args.train_smoothnet or (
+        args.eval and args.visualization)  # one process's routes read the whole weights
+    if grid.mp > 1 and not whole_only:
+        # replicate over dp, shard the large kernels and their state over mp
+        shards = mesh.shard_state(grid, model, optimizer)
+        print(f"--mp {grid.mp}: dp {grid.dp} x mp {grid.mp}, {len(shards)} parameters "
+              f"sharded over mp")
 
     fused = engine.make_fused_train_step(
         model, *world, optimizer, img_res=float(args.img_res),
         cost_class=args.set_cost_class, cost_keypoint=args.set_cost_keypoint,
         clip_max_norm=args.clip_max_norm,
-        generator=torch.Generator(device=device).manual_seed(mesh.process_seed(args.seed)),
-        device=device, process_group=torch.distributed.group.WORLD if mesh.active() else None)
+        generator=torch.Generator(device=device).manual_seed(
+            mesh.process_seed(args.seed, grid.dp_rank)),
+        device=device, process_group=grid.dp_group, model_group=grid.mp_group)
 
     def train_step(batch):
         loss_dict = fused(batch)
@@ -609,7 +634,8 @@ def main(args) -> dict:
             for c in ckpts:
                 if c is not None:
                     ckpt.load_checkpoint(c, model, None, args.not_use_params)
-                scores = engine.evaluate(eval_step, dl_val, max_steps=max_steps, timing=timing)
+                scores = engine.evaluate(eval_step, dl_val, max_steps=max_steps, timing=timing,
+                                         group=grid.dp_group)
                 if args.full_validation or needs_seq_eval:
                     seq_step = engine.make_sequence_eval_step(model, *world, float(args.img_res),
                                                               device=device)
@@ -633,7 +659,8 @@ def main(args) -> dict:
             if (epoch + 1) % args.save_checkpoint_interval == 0:
                 ckpt.save_checkpoint(args.output_dir, epoch, model, optimizer,
                                      step=scheduler.last_epoch, extra={"epoch": epoch})
-            scores = engine.evaluate(eval_step, dl_val, max_steps=max_steps, timing=timing)
+            scores = engine.evaluate(eval_step, dl_val, max_steps=max_steps, timing=timing,
+                                     group=grid.dp_group)
             save_results(args.output_dir, epoch, loss_dict=stats, score_dict=scores)
             wb.log({**stats, **scores}, step=epoch)
             print(f"epoch {epoch}: {time.time() - t0:.1f}s train_loss={stats.get('loss'):.4f} "

@@ -42,7 +42,7 @@ from .evaluation.decode import decode_predictions
 from .evaluation.mdev import eval_motion_deviation
 from .evaluation.metrics import eval_acc_pose, measure_error
 from .losses.criterion import arctic_criterion, select_queries
-from .train.mesh import all_gather_rows, all_reduce_grads, gather_batch
+from .train.mesh import all_gather_rows, all_reduce_grads, broadcast_grads, gather_batch
 from .train.state import StochasticRounding, clip_by_global_norm_, global_norm
 from .utils.logging import MetricLogger
 from .utils.tools import arctic_smoothing
@@ -175,7 +175,7 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
                           weights=None, cost_class: float = 1.5, cost_keypoint: float = 4.0,
                           clip_max_norm: float = 0.1, preprocess: bool = True,
                           generator: Optional[torch.Generator] = None, device=None,
-                          process_group=None):
+                          process_group=None, model_group=None):
     """-> step(batch) -> loss dict (0-d tensors, with `grad_norm`) for a
     batch of numpy arrays or tensors: one optimizer update.
 
@@ -202,7 +202,18 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
     gradient; the shares are summed (`train.mesh.all_reduce_grads`), and
     every process then takes the same clip and update, so the parameters
     stay equal across processes. Each process should draw dropout from a
-    generator of its own (`train.mesh.process_seed`)."""
+    generator of its own (`train.mesh.process_seed`).
+
+    With a `model_group` as well (the model axis of `train.mesh.make_mesh`;
+    `process_group` is then its data axis), the parameters that
+    `train.mesh.shard_state` sharded hold this process's rows: their
+    gradients are summed over the data axis, the other parameters' too,
+    which then take the gradient of the model axis's first process (its
+    processes compute the same one, but for the last bits of atomics), so
+    that their copies stay equal; the global norm counts each shard once
+    (`train.state.global_norm`), and each process steps its shards. The mp
+    processes of a dp row take the same rows and draw alike
+    (`process_seed` of the dp rank)."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -226,9 +237,12 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad.float() if float32_update else p.grad for p in params]
+            sharded = [hasattr(p, "mp_shard") for p in params] if model_group is not None else []
             if process_group is not None:
                 all_reduce_grads(grads, process_group)
-            norm = global_norm(grads)
+            if model_group is not None:
+                broadcast_grads([g for g, s in zip(grads, sharded) if not s], model_group)
+            norm = global_norm(grads, sharded, model_group)
             if clip_max_norm > 0:
                 clip_by_global_norm_(grads, clip_max_norm, norm)
             if float32_update:
@@ -324,14 +338,15 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
 
 
 def evaluate(eval_step, loader: Iterable, max_steps: Optional[int] = None,
-             timing: Optional[dict] = None) -> Dict[str, float]:
+             timing: Optional[dict] = None, group=None) -> Dict[str, float]:
     """Run `eval_step` over `loader` (a `DataLoader` or any iterable of
     batches); nanmean of every metric over frames. Over several processes
     each runs its share of the batches, and the per-frame rows of every
-    process are gathered before the means (`train.mesh.all_gather_rows`),
-    so every process reports the global scores. `timing`, where given,
-    gets each batch's time from its arrival to its rows on the host
-    (`batch_ms`)."""
+    process of `group` (the default group; under a model axis its data
+    axis, whose processes hold other rows) are gathered before the means
+    (`train.mesh.all_gather_rows`), so every process reports the global
+    scores. `timing`, where given, gets each batch's time from its arrival
+    to its rows on the host (`batch_ms`)."""
     per_metric: Dict[str, list] = {}
     for i, batch in enumerate(_batches(eval_step, loader)):
         t0 = time.perf_counter()
@@ -341,7 +356,7 @@ def evaluate(eval_step, loader: Iterable, max_steps: Optional[int] = None,
             timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
         if max_steps is not None and i + 1 >= max_steps:
             break
-    rows = all_gather_rows({k: np.concatenate(v) for k, v in per_metric.items()})
+    rows = all_gather_rows({k: np.concatenate(v) for k, v in per_metric.items()}, group)
     return {k: float(np.nanmean(v)) for k, v in rows.items()}
 
 

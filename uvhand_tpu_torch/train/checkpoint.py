@@ -13,7 +13,10 @@ surface:
     and the optimizer's float32 state and stochastic-rounding step are
     saved with it; over several processes rank 0 writes, and every process
     waits for the file before it goes on (so none resumes or evaluates a
-    half-written one);
+    half-written one); a model sharded over a model axis
+    (`train/mesh.py::shard_state`) is written whole, its parameters and its
+    optimizer's state gathered on every process first, so the file is the
+    one a single process writes and loads at any mp;
   - `load_checkpoint` restores a checkpoint directory or `.pth` with the
     `not_use_params` keyword filter (parameters whose name holds a keyword
     keep their fresh values) and restores the optimizer tolerantly (a
@@ -35,6 +38,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from . import mesh
 from .launch import is_main_process
 from .mesh import barrier
 
@@ -47,18 +51,18 @@ def save_checkpoint(output_dir: str, epoch: int, model: torch.nn.Module,
     """Write `{output_dir}/{epoch}/checkpoint.pth` (and, with `extra`,
     `{output_dir}/{epoch}.meta.json`); returns the checkpoint directory.
     Over several processes only rank 0 writes (the parameters and the
-    optimizer's state are the same on every process), and every process
-    returns once the files are whole."""
+    optimizer's state are the same on every process, once a model axis's
+    shards are gathered), and every process returns once the files are
+    whole."""
     ckpt_dir = os.path.abspath(os.path.join(output_dir, str(epoch)))
+    state = mesh.whole_state_dict(model)
+    opt_state = None if optimizer is None else mesh.whole_optimizer_state(optimizer)
     if not is_main_process():
         barrier()
         return ckpt_dir
     os.makedirs(ckpt_dir, exist_ok=True)
-    weights = {k: v.float() if v.dtype == torch.bfloat16 else v
-               for k, v in model.state_dict().items()}
-    payload = {"model": weights,
-               "optimizer": None if optimizer is None else optimizer.state_dict(),
-               "step": int(step), "epoch": int(epoch)}
+    weights = {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in state.items()}
+    payload = {"model": weights, "optimizer": opt_state, "step": int(step), "epoch": int(epoch)}
     path = os.path.join(ckpt_dir, FILE)
     torch.save(payload, path + ".tmp")
     os.replace(path + ".tmp", path)
@@ -86,13 +90,21 @@ def _load_params(model: torch.nn.Module, saved: dict,
     `not_use_params` keyword, which keep their current values. Raises
     KeyError on a name the model needs that `saved` lacks."""
     keep = tuple(not_use_params or ())
-    current = model.state_dict()
-    missing = [k for k in current if k not in saved and not any(kw in k for kw in keep)]
+    if mesh.is_sharded(model):  # whole tensors, each shard taking its rows
+        names = [mesh.whole_name(k) for k in model.state_dict()]
+    else:
+        current = model.state_dict()
+        names = list(current)
+    missing = [k for k in names if k not in saved and not any(kw in k for kw in keep)]
     if missing:
         raise KeyError(f"the checkpoint lacks {len(missing)} of the model's tensors, e.g. "
                        f"{missing[:3]}")
     # a saved tensor takes the type of the model's (load_state_dict copies
     # into it): float32 into bfloat16 parameters narrows exactly
+    if mesh.is_sharded(model):
+        mesh.load_whole_state_dict(model, {k: saved[k] for k in names
+                                           if not any(kw in k for kw in keep)})
+        return
     model.load_state_dict({k: v if any(kw in k for kw in keep) else saved[k]
                            for k, v in current.items()})
 
@@ -122,13 +134,15 @@ def load_checkpoint(path: str, model: torch.nn.Module,
     a `.pth`) into `model` and, with `load_opt`, into `optimizer`. Returns
     {"step", "epoch", "optimizer_restored"}: the saved step where the
     optimizer's state was restored, else 0 (a fresh optimizer starts its
-    schedule anew, as the JAX package's tolerant restore does)."""
+    schedule anew, as the JAX package's tolerant restore does). A sharded
+    model and optimizer take their rows of the whole saved tensors."""
     ckpt = _read(path)
     _load_params(model, ckpt["model"], not_use_params)
-    restored = (load_opt and optimizer is not None
-                and _optimizer_fits(optimizer, ckpt.get("optimizer")))
+    saved_opt = None if optimizer is None else mesh.local_optimizer_state(
+        optimizer, ckpt.get("optimizer"))
+    restored = (load_opt and optimizer is not None and _optimizer_fits(optimizer, saved_opt))
     if restored:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        optimizer.load_state_dict(saved_opt)
     elif load_opt and optimizer is not None:
         print(f"optimizer state of {path} does not fit this optimizer: starting it fresh")
     return {"step": int(ckpt.get("step", 0)) if restored else 0,

@@ -88,14 +88,19 @@ the BatchNorms' `num_batches_tracked` (the backbone's BatchNorm is frozen).
 Dense kernels (in, out) are transposed to torch's (out, in); convs go
 HWIO -> OIHW. A bfloat16 leaf (a `bf16_params` tree) is widened to float32
 on the way, which is exact, and arrives as a bfloat16 tensor.
+
+`leaf_layouts(model)` reads the same map the other way, for the model
+axis (`train/mesh.py`): for each parameter of a port model, the layout of
+the JAX leaf (or leaves) it comes from, where that leaf is 2-D.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 _SHARED_HEADS = (
     ("mano_pose_head", "mano_pose_embed"),
@@ -393,3 +398,53 @@ def convert_torchvision_resnet50(state_dict) -> Dict[str, torch.Tensor]:
                 v.detach().cpu() if isinstance(v, torch.Tensor) else v), dtype=torch.float32)
             for k, v in state_dict.items()
             if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+
+
+class LeafLayout(NamedTuple):
+    """A port parameter seen as the 2-D JAX leaves it is made of: the torch
+    dim that holds their output (last) axis, how many leaves are stacked
+    along it, one leaf's elements and output axis, and whether the leaves
+    sit under the JAX tree's `backbone`."""
+    dim: int
+    blocks: int
+    size: int
+    out: int
+    backbone: bool
+
+
+#: port parameters whose JAX leaf is 1-D: `two_stage_learn_xy` (40,),
+#: reshaped to the reference's Embedding(1, 40) above
+_ONE_D_LEAVES = ("two_stage_learn_xy.weight", "two_stage_wh_embedding.weight")
+
+
+def leaf_layouts(model: nn.Module) -> Dict[str, Optional[LeafLayout]]:
+    """Parameter name -> `LeafLayout` of its JAX leaves, None where they are
+    not 2-D. From `state_dict_from_jax`'s transforms: a `Linear` weight
+    (out, in) is a dense kernel (in, out) transposed (dim 0); an
+    `nn.LSTM` weight stacks the cell's four gate kernels (in, hidden)
+    transposed (dim 0, 4 blocks); an `nn.Embedding` weight or a bare 2-D
+    parameter (`level_embed`, `temporal_pos`, `query_embed`, ...) is its
+    leaf as it is (dim 1); a `nn.MultiheadAttention`'s projections come
+    from flax's (d, heads, head_dim) kernels and its biases from
+    (heads, head_dim) ones, convs from 4-D kernels, norms and biases from
+    1-D leaves. The JAX tree's `backbone` is the reference Joiner's slot 0,
+    `backbone.0.*` (slot 1, `backbone.1.*`, is its `pos_embed`)."""
+    attention = {id(m) for mod in model.modules() if isinstance(mod, nn.MultiheadAttention)
+                 for m in (mod, mod.out_proj)}
+    out: Dict[str, Optional[LeafLayout]] = {}
+    for mname, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            backbone = name.startswith("backbone.0.")
+            layout = None
+            if id(mod) in attention or p.dim() != 2 or name.endswith(_ONE_D_LEAVES):
+                pass
+            elif isinstance(mod, nn.LSTM):
+                if pname.startswith("weight_"):
+                    layout = LeafLayout(0, 4, p.numel() // 4, p.shape[0] // 4, backbone)
+            elif isinstance(mod, nn.Linear):
+                layout = LeafLayout(0, 1, p.numel(), p.shape[0], backbone)
+            else:
+                layout = LeafLayout(1, 1, p.numel(), p.shape[1], backbone)
+            out[name] = layout
+    return out

@@ -118,7 +118,9 @@ class StochasticRounding:
     come from a generator seeded with (sr_seed, t), one draw of each
     parameter's shape in that order; `step(bits=...)` takes them instead.
     The step count and seed live in the parameter groups, so a saved state
-    dict resumes them."""
+    dict resumes them. A parameter sharded over a model axis
+    (`train.mesh.shard_state`) takes its rows of the whole parameter's
+    draws."""
 
     def __init__(self, params, *args, sr_seed: int = 0, **kwargs):
         groups = [dict(g) for g in params]
@@ -163,7 +165,15 @@ class StochasticRounding:
                                                            first["sr_step"])
         for p, c in zip(self.bf16_params, copies):
             if c.grad is not None:
-                p.copy_(stochastic_round_bf16(c, None if bits is None else bits[p], gen))
+                b = None if bits is None else bits[p]
+                shard = getattr(p, "mp_shard", None)
+                if shard is not None and b is None:
+                    # a shard takes its rows of the whole parameter's draws,
+                    # so every process draws what one process would
+                    b = shard.local(torch.randint(0, 1 << 16, shard.whole_shape(c.shape),
+                                                  generator=gen, device=c.device,
+                                                  dtype=torch.int32))
+                p.copy_(stochastic_round_bf16(c, b, gen))
                 c.grad = None
         for group in self.param_groups:
             group["sr_step"] += 1
@@ -196,9 +206,19 @@ def set_schedule_step(scheduler: torch.optim.lr_scheduler.LambdaLR, step: int) -
     scheduler._last_lr = [group["lr"] for group in scheduler.optimizer.param_groups]
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, as a 0-d tensor."""
-    return torch.nn.utils.get_total_norm(list(tensors), norm_type=2.0)
+def global_norm(tensors: Iterable[torch.Tensor], sharded: Sequence[bool] = (),
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, as a 0-d tensor. The
+    tensors flagged in `sharded` are this process's rows of tensors sharded
+    over `group` (a model axis): their squares are summed over it, and
+    every other tensor, the same on each process of it, counts once."""
+    tensors = list(tensors)
+    if not any(sharded):
+        return torch.nn.utils.get_total_norm(tensors, norm_type=2.0)
+    parts = [[t for t, s in zip(tensors, sharded) if s == flag] for flag in (False, True)]
+    whole, rows = (torch.nn.utils.get_total_norm(p, norm_type=2.0) ** 2 for p in parts)
+    torch.distributed.all_reduce(rows, group=group)
+    return torch.sqrt(whole + rows)
 
 
 @torch.no_grad()
