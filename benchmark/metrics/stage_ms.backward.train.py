@@ -1,0 +1,7 @@
+"""Host ms a traced train step spent in the engine's `backward` range."""
+
+from benchmark import readers
+
+
+def read(r):
+    return readers.stage_ms(r, "train", "backward")

@@ -1,0 +1,81 @@
+"""The harness on the CPU: a cell added by files alone runs, the result
+line's keys, the refusal without a card, the window's rate and the p95,
+and the planted faults that the check must catch."""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import readers, run, spec
+from benchmark.tests import tiny_cells
+
+CPU = torch.device("cpu")
+E2E = {"train": ["setup_s", "train_frames_per_s"],
+       "eval": ["eval_batch_ms_p95", "eval_frames_per_s", "setup_s"]}
+
+
+@pytest.fixture(scope="module")
+def roots(tmp_path_factory):
+    return {loop: tiny_cells.make(tmp_path_factory.mktemp(loop), loop) for loop in E2E}
+
+
+@pytest.mark.parametrize("loop", sorted(E2E))
+def test_a_cell_added_by_files_runs(roots, loop):
+    result, numbers, _ = run.run_cell(tiny_cells.args(loop), CPU, root=roots[loop])
+    assert list(result) == ["correct", "attempted", "failed", "metrics", "device",
+                            "kernels_built", "checks"]
+    assert result["correct"], result["checks"]
+    assert sorted(result["metrics"]) == E2E[loop]
+    assert result["attempted"] > 0 and result["failed"] == 0
+    assert set(result["checks"]) == set(spec.load_cell(f"tiny.{loop}", roots[loop]).limits)
+    json.dumps(result, allow_nan=False)
+
+
+@pytest.mark.parametrize("loop", sorted(E2E))
+def test_traced_line_has_the_breakdown_and_the_per_layer_metrics(roots, loop):
+    result, _, readings = run.run_cell(tiny_cells.args(loop, trace=1), CPU, root=roots[loop])
+    assert list(result) == ["correct", "attempted", "failed", "metrics", "device", "breakdown",
+                            "kernels_built", "checks"]
+    assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert {"busy_s", "window_s"} <= set(result["device"])
+    cell = spec.load_cell(f"tiny.{loop}", roots[loop])
+    assert set(result["metrics"]) <= {m["name"] for m in cell.per_layer}
+    if loop == "train":  # the engine's ranges are on the host: the CPU profile has them
+        assert {f"stage_ms.{s}.train" for s in ("forward", "criterion", "backward")} \
+            <= set(result["metrics"])
+
+
+@pytest.mark.parametrize("loop,fault", [("train", "frozen_state"), ("train", "half_batch"),
+                                        ("train", "altered_answer"), ("train", "group_rate"),
+                                        ("eval", "half_batch"), ("eval", "altered_answer"),
+                                        ("eval", "shifted_images")])
+def test_a_fault_under_the_timed_path_is_not_correct(roots, loop, fault):
+    result, _, _ = run.run_cell(tiny_cells.args(loop), CPU, root=roots[loop], fault=fault)
+    assert result["correct"] is False, result["checks"]
+
+
+def test_no_card_no_result(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = run.main(["--workload", "sf_r50.train_b64", "--seed", "1", "--seconds", "1",
+                   "--trace", "0"])
+    assert rc != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_the_rate_is_all_frames_over_all_seconds():
+    r = run.Readings("train", 64, {}, setup_s=1.0, window_s=2.5, steps=7)
+    assert readers.rate(r, "train") == 7 * 64 / 2.5
+    assert readers.rate(r, "eval") is None
+
+
+def test_the_p95_is_over_every_batch():
+    ms = list(np.linspace(50.0, 60.0, 190)) + [500.0] * 10  # the tail is 5 % of the batches
+    r = run.Readings("eval", 64, {}, setup_s=1.0, window_s=10.0, steps=200,
+                     timing={"batch_ms": ms})
+    value = spec.reader("eval_batch_ms_p95")(r)
+    assert value == pytest.approx(np.percentile(ms, 95))
+    assert value > 60.0
