@@ -1,0 +1,7 @@
+"""Median host ms a train step of the window spent in the `forward` span."""
+
+from benchmark import spans
+
+
+def read(r):
+    return spans.median_ms(r, "train", "forward")

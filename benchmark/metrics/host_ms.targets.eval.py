@@ -1,0 +1,7 @@
+"""Median host ms an eval batch of the window spent in the `targets` span."""
+
+from benchmark import spans
+
+
+def read(r):
+    return spans.median_ms(r, "eval", "targets")

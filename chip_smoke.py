@@ -1428,7 +1428,8 @@ def train_profile_phase(model, world, batch):
     ranges = {e.key: e for e in events
               if e.key in engine.TRAIN_STAGES and e.device_type == DeviceType.CPU}
     attributed = 0.0
-    for name in engine.TRAIN_STAGES:
+    # a train step alone opens its own stages: not the loops' `wait` and `read`, nor eval's
+    for name in (n for n in engine.TRAIN_STAGES if n in ranges):
         e = ranges[name]
         attributed += e.device_time_total / 1e3 / reps
         log(f"[train-profile] stage {name}: host {e.cpu_time_total / 1e3 / reps:.3f} ms, "

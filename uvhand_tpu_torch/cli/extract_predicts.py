@@ -17,7 +17,6 @@ from __future__ import annotations
 import json
 import os
 import os.path as op
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -27,6 +26,7 @@ from ..data.loader import prefetch_samples
 from ..geometry import camera as camera_lib
 from ..geometry.rotations import axis_angle_to_matrix
 from ..losses.criterion import select_queries
+from ..utils.spans import recording, span, steps
 
 SUBMIT_KEYS = (
     "pred.mano.cam_t.l", "pred.mano.beta.l", "pred.mano.pose.l",
@@ -136,9 +136,11 @@ def run_extraction(model, dataset, batch_size, out_dir, img_res=224.0, seqs=None
     each group run in batches of `batch_size` (the last padded with its
     last frame, the padding dropped), exported to `out_dir`. `model` runs
     on the device its parameters are on. `results`, where given, receives
-    each camera's dict before the float16 cast; `timing["batch_ms"]` the
-    host-clock ms of each batch's forward and extraction. Returns
-    `out_dir`."""
+    each camera's dict before the float16 cast; `timing` the loop's spans
+    (`utils.spans`: each batch's `wait` for its decoded frames and the
+    `batch`, its forward and extraction) in `timing["spans"]`, the batch
+    index counted over every sequence, and the `batch` spans' ms in
+    `timing["batch_ms"]`. Returns `out_dir`."""
     groups: Dict[str, List[int]] = {}
     for i, n in enumerate(dataset.imgnames):
         sid, seq_name, _, _ = n.split("/")[-4:]
@@ -148,24 +150,29 @@ def run_extraction(model, dataset, batch_size, out_dir, img_res=224.0, seqs=None
 
     device = next(model.parameters()).device
     model.eval()
-    for ids in groups.values():
-        out_list, chunks, trims = [], [], []
-        for s in range(0, len(ids), batch_size):
-            chunk = ids[s:s + batch_size]
-            trims.append(len(chunk))
-            chunks.append(chunk + [chunk[-1]] * (batch_size - len(chunk)))
-        # the host's decode overlaps the device's work (a thread-pool prefetch)
-        for samples, trim in zip(prefetch_samples(dataset, chunks), trims):
-            t0 = time.perf_counter()
-            imgs = torch.as_tensor(np.stack([x["images"] for x in samples]), device=device)
-            K = torch.as_tensor(np.stack([x["intrinsics"] for x in samples]), device=device)
-            with torch.inference_mode():
-                b = extract_batch(model(imgs), K, [x["imgname"] for x in samples], img_res)
-            if timing is not None:
-                timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
-            out_list.append({k: v[:trim] for k, v in b.items()})
-        out_cam = std_interface(out_list)
-        if results is not None:
-            results.update(out_cam)
-        save_results(out_cam, out_dir)
+    done = 0  # batches of the sequences before this one
+    with recording(timing, batch_ms="batch"):
+        for ids in groups.values():
+            out_list, chunks, trims = [], [], []
+            for s in range(0, len(ids), batch_size):
+                chunk = ids[s:s + batch_size]
+                trims.append(len(chunk))
+                chunks.append(chunk + [chunk[-1]] * (batch_size - len(chunk)))
+            # the host's decode overlaps the device's work (a thread-pool prefetch)
+            for _, (samples, trim) in steps(zip(prefetch_samples(dataset, chunks), trims),
+                                            start=done):
+                with span("batch"):
+                    imgs = torch.as_tensor(np.stack([x["images"] for x in samples]),
+                                           device=device)
+                    K = torch.as_tensor(np.stack([x["intrinsics"] for x in samples]),
+                                        device=device)
+                    with torch.inference_mode():
+                        b = extract_batch(model(imgs), K, [x["imgname"] for x in samples],
+                                          img_res)
+                out_list.append({k: v[:trim] for k, v in b.items()})
+            done += len(chunks)
+            out_cam = std_interface(out_list)
+            if results is not None:
+                results.update(out_cam)
+            save_results(out_cam, out_dir)
     return out_dir

@@ -27,12 +27,10 @@ and `evaluate` gathers the per-frame rows before the means.
 from __future__ import annotations
 
 import math
-import time
 from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .data.arctic import collate
 from .data.loader import device_prefetch, prefetch_samples
@@ -45,6 +43,7 @@ from .losses.criterion import arctic_criterion, select_queries
 from .train.mesh import all_gather_rows, all_reduce_grads, broadcast_grads, gather_batch
 from .train.state import StochasticRounding, clip_by_global_norm_, global_norm
 from .utils.logging import MetricLogger
+from .utils.spans import recording, span, steps
 from .utils.tools import arctic_smoothing
 
 #: per-batch metrics measure_error computes; the sequence metrics (mdev,
@@ -75,8 +74,13 @@ TRAIN_KEYS = EVAL_KEYS + (
     "mano.j2d.norm.r", "mano.j2d.norm.l", "center_index",
 )
 
-#: profiler ranges of one train step, in order (`targets` only with preprocess)
-TRAIN_STAGES = ("targets", "forward", "criterion", "backward", "clip+optimizer")
+#: the spans (`utils.spans`) of a train step or an eval batch that follow
+#: one another, so that no two overlap in time: the loops' `wait` for the
+#: batch, the steps' stages (`targets` only with preprocess) and the loops'
+#: `read` of the result. Left out, as they hold or lie inside these: `step`,
+#: `batch`, and the criterion's `match` and `layer_losses`
+TRAIN_STAGES = ("wait", "targets", "forward", "criterion", "backward", "clip+optimizer",
+                "decode", "metrics", "read")
 
 
 def to_device(batch: Dict[str, np.ndarray], device, keys=EVAL_KEYS) -> Dict[str, torch.Tensor]:
@@ -151,15 +155,15 @@ def make_loss_fn(model, mano_r, mano_l, obj_bank, img_res: float = 224.0, weight
         batch = dict(batch)
         center_index = batch.pop("center_index", None)
         if preprocess:
-            with torch.no_grad(), record_function("targets"):
+            with torch.no_grad(), span("targets"):
                 targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
         else:
             targets = batch["targets"]
-        with record_function("forward"):
+        with span("forward"):
             dn = ({} if not use_dn or center_index is not None
                   else dict(dn_targets=dn_targets(targets), dn_meta=dn_meta))
             outputs = model(batch["images"], generator=generator, **dn)
-        with record_function("criterion"):
+        with span("criterion"):
             if center_index is not None:
                 outputs = select_output_frames(outputs, center_index.long())
             if process_group is not None:
@@ -190,7 +194,7 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
     before the norm, the clip and the update, as the JAX package's
     `float32_optimizer_state` does. A learning-rate schedule is stepped by
     the caller after each step (`train.state.scheduled`). The stages are
-    profiler ranges named in `TRAIN_STAGES`.
+    spans (`utils.spans`) named in `TRAIN_STAGES`.
 
     With a `process_group` (the JAX package's data axis), `batch` is this
     process's share of the global batch (`data.loader.DataLoader(rank=...,
@@ -230,9 +234,9 @@ def make_fused_train_step(model, mano_r, mano_l, obj_bank, optimizer, img_res: f
         model.train()
         optimizer.zero_grad(set_to_none=False)
         total, loss_dict = loss_fn(batch, generator)
-        with record_function("backward"):
+        with span("backward"):
             total.backward()
-        with record_function("clip+optimizer"):
+        with span("clip+optimizer"):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -273,8 +277,11 @@ def train_one_epoch(train_step, loader: Iterable, epoch: int = 0,
     mean loss and grad norm over the steps (`MetricLogger`'s global
     averages). Raises FloatingPointError on a non-finite loss (the NaN
     guard), which reads the loss on the host every step. `timing`, where
-    given, gets each step's wait for its batch (`wait_ms`: the loader and
-    the copy's set-up) and the step itself up to that read (`step_ms`)."""
+    given, gets the loop's spans (`utils.spans`: each step's `wait` for its
+    batch, the `step` up to and with the loss's `read`, and the step's
+    stages inside it) in `timing["spans"]`, and the durations of the
+    `wait` (the loader and the copy's set-up) and `step` spans in
+    `wait_ms` and `step_ms`."""
     logger = MetricLogger()
     if hasattr(loader, "set_epoch"):
         loader.set_epoch(epoch)
@@ -283,20 +290,17 @@ def train_one_epoch(train_step, loader: Iterable, epoch: int = 0,
         total_steps = min(total_steps, max_steps)
     batches = logger.log_every(_batches(train_step, loader), print_freq, f"Epoch [{epoch}]",
                                total=total_steps)
-    t_wait = time.perf_counter()
-    for i, batch in enumerate(batches):
-        t0 = time.perf_counter()
-        loss_dict = train_step(batch)
-        total = float(loss_dict["total"])
-        if timing is not None:
-            timing.setdefault("wait_ms", []).append((t0 - t_wait) * 1e3)
-            timing.setdefault("step_ms", []).append((time.perf_counter() - t0) * 1e3)
-        if not math.isfinite(total):
-            raise FloatingPointError(f"Loss is {total}, stopping training (step {i})")
-        logger.update(loss=total, grad_norm=float(loss_dict["grad_norm"]))
-        if max_steps is not None and i + 1 >= max_steps:
-            break
-        t_wait = time.perf_counter()
+    with recording(timing, wait_ms="wait", step_ms="step"):
+        for i, batch in steps(batches):
+            with span("step"):
+                loss_dict = train_step(batch)
+                with span("read"):
+                    total = float(loss_dict["total"])
+            if not math.isfinite(total):
+                raise FloatingPointError(f"Loss is {total}, stopping training (step {i})")
+            logger.update(loss=total, grad_norm=float(loss_dict["grad_norm"]))
+            if max_steps is not None and i + 1 >= max_steps:
+                break
     logger.synchronize_between_processes()
     return {k: m.global_avg for k, m in logger.meters.items()}
 
@@ -317,7 +321,9 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
     vertex sets (`arctic_smoothing`) before measuring, as the reference's
     eval-time `--iter` passes do. Runs on `device` (the CUDA card unless
     `device="cpu"`), where the model and the MANO/object tensors must
-    already be."""
+    already be. The stages are spans (`utils.spans`) named in
+    `TRAIN_STAGES`: `targets`, `forward`, `decode` (the query select, the
+    decode and the smoothing) and `metrics`."""
     device = resolve_device(device)
     metrics = tuple(m for m in metrics if m in BATCH_METRICS)
 
@@ -325,13 +331,18 @@ def make_eval_step(model, mano_r, mano_l, obj_bank, img_res: float = 224.0,
     def step(batch):
         model.eval()
         batch = to_device(batch, device)
-        targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
-        pred = decode_predictions(selected_params(model(batch["images"])), targets, mano_r,
-                                  mano_l, obj_bank, img_res)
-        if smooth_iter > 0:
-            for k in ("object.v.cam", "mano.v3d.cam.r", "mano.v3d.cam.l"):
-                pred[k] = arctic_smoothing(pred[k], smooth_iter).reshape(pred[k].shape)
-        return measure_error(pred, targets, metrics)
+        with span("targets"):
+            targets = process_targets(batch, mano_r, mano_l, obj_bank, img_res)
+        with span("forward"):
+            outputs = model(batch["images"])
+        with span("decode"):
+            pred = decode_predictions(selected_params(outputs), targets, mano_r, mano_l,
+                                      obj_bank, img_res)
+            if smooth_iter > 0:
+                for k in ("object.v.cam", "mano.v3d.cam.r", "mano.v3d.cam.l"):
+                    pred[k] = arctic_smoothing(pred[k], smooth_iter).reshape(pred[k].shape)
+        with span("metrics"):
+            return measure_error(pred, targets, metrics)
 
     step.device = device
     return step
@@ -345,17 +356,20 @@ def evaluate(eval_step, loader: Iterable, max_steps: Optional[int] = None,
     process of `group` (the default group; under a model axis its data
     axis, whose processes hold other rows) are gathered before the means
     (`train.mesh.all_gather_rows`), so every process reports the global
-    scores. `timing`, where given, gets each batch's time from its arrival
-    to its rows on the host (`batch_ms`)."""
+    scores. `timing`, where given, gets the loop's spans (`utils.spans`:
+    each batch's `wait`, the `batch` from its arrival to its rows on the
+    host, which ends in their `read`, and the step's stages inside it) in
+    `timing["spans"]`, and the `batch` spans' durations in `batch_ms`."""
     per_metric: Dict[str, list] = {}
-    for i, batch in enumerate(_batches(eval_step, loader)):
-        t0 = time.perf_counter()
-        for k, v in eval_step(batch).items():
-            per_metric.setdefault(k, []).append(v.cpu().numpy())
-        if timing is not None:
-            timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
-        if max_steps is not None and i + 1 >= max_steps:
-            break
+    with recording(timing, batch_ms="batch"):
+        for i, batch in steps(_batches(eval_step, loader)):
+            with span("batch"):
+                out = eval_step(batch)
+                with span("read"):
+                    for k, v in out.items():
+                        per_metric.setdefault(k, []).append(v.cpu().numpy())
+            if max_steps is not None and i + 1 >= max_steps:
+                break
     rows = all_gather_rows({k: np.concatenate(v) for k, v in per_metric.items()}, group)
     return {k: float(np.nanmean(v)) for k, v in rows.items()}
 
@@ -443,7 +457,8 @@ def make_assembly_train_step(model, optimizer, clip_max_norm: float = 0.1,
     batch: `num_boxes` is the global batch's, each process's backward gives
     its share of the gradient, the shares are summed, and the loss terms
     are the global batch's (`cardinality_error` the mean over processes).
-    The stages are profiler ranges named in `TRAIN_STAGES` (no `targets`)."""
+    The stages are spans (`utils.spans`) named in `TRAIN_STAGES` (no
+    `targets`)."""
     from .models.assembly import assembly_criterion
 
     device = resolve_device(device)
@@ -459,14 +474,14 @@ def make_assembly_train_step(model, optimizer, clip_max_norm: float = 0.1,
         if process_group is not None:
             num_boxes = b["target_valid"].sum().float()
             torch.distributed.all_reduce(num_boxes, group=process_group)
-        with record_function("forward"):
+        with span("forward"):
             out = model(b["images"], generator)
-        with record_function("criterion"):
+        with span("criterion"):
             total, loss_dict = assembly_criterion(out, b["labels"], b["keypoints63"],
                                                   b["target_valid"], num_boxes=num_boxes)
-        with record_function("backward"):
+        with span("backward"):
             total.backward()
-        with record_function("clip+optimizer"):
+        with span("clip+optimizer"):
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
@@ -520,18 +535,20 @@ def evaluate_assembly(eval_step, loader: Iterable, img_res: int,
     """`assembly_keypoint_metrics` (pixel MPJPE in uv at `img_res` x
     `img_res`, depth MAE) over the valid slots of every batch of `loader`;
     over several processes the rows of every process are gathered first.
-    `timing` gets each batch's `batch_ms`, as `evaluate`'s."""
+    `timing` gets the loop's spans and each batch's `batch_ms`, as
+    `evaluate`'s."""
     from .evaluation.coco_eval import assembly_keypoint_metrics
 
     parts: Dict[str, list] = {}
-    for i, batch in enumerate(_batches(eval_step, loader)):
-        t0 = time.perf_counter()
-        for k, v in eval_step(batch).items():
-            parts.setdefault(k, []).append(v.cpu().numpy())
-        if timing is not None:
-            timing.setdefault("batch_ms", []).append((time.perf_counter() - t0) * 1e3)
-        if max_steps is not None and i + 1 >= max_steps:
-            break
+    with recording(timing, batch_ms="batch"):
+        for i, batch in steps(_batches(eval_step, loader)):
+            with span("batch"):
+                out = eval_step(batch)
+                with span("read"):
+                    for k, v in out.items():
+                        parts.setdefault(k, []).append(v.cpu().numpy())
+            if max_steps is not None and i + 1 >= max_steps:
+                break
     rows = all_gather_rows({k: np.concatenate(v) for k, v in parts.items()})
     return assembly_keypoint_metrics(rows["pred"], rows["gt"], rows["valid"],
                                      img_size=(img_res, img_res))

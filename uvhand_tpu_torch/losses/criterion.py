@@ -26,6 +26,9 @@ reference is a masked mean; nothing syncs with the host.
 Loss keys are the JAX package's: `name` for the last layer, `name_{l}` for
 layer l < L-1, `*_dn` / `*_dn_{l}`, `<name>/temporal`, `*_interm`,
 `cardinality_error` and `total`.
+
+The matcher's calls are spans `match`, the per-layer and temporal small
+losses spans `layer_losses` (`utils.spans`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..geometry.mano import MANOModel, mano_forward
 from ..geometry.objects import ObjectBank, object_forward
 from ..geometry.rotations import axis_angle_to_matrix
 from ..models.dn import dn_losses
+from ..utils.spans import span
 from .matching import arctic_match
 
 NUM_OBJ_CLASSES = 11  # object classes 1..11; 12 / 13 are the left / right hand
@@ -313,10 +317,11 @@ def arctic_criterion(
     # the single-stage model has no keypoint outputs: matched by class alone
     two_stage = st["pred_hand_key"] is not None
     keys = (fold(st["pred_hand_key"]), fold(st["pred_obj_key"])) if two_stage else (None, None)
-    assign_all = arctic_match(
-        fold(st["pred_logits"]), *keys,
-        tile(tgt_labels), tile(tgt_kps), tile(tgt_valid),
-        cost_class=cost_class, cost_keypoint=cost_keypoint).reshape(L, B, -1)
+    with span("match"):
+        assign_all = arctic_match(
+            fold(st["pred_logits"]), *keys,
+            tile(tgt_labels), tile(tgt_kps), tile(tgt_valid),
+            cost_class=cost_class, cost_keypoint=cost_keypoint).reshape(L, B, -1)
     det_names = ("loss_ce", "loss_hand_keypoint", "loss_obj_keypoint")[:3 if two_stage else 1]
 
     def det_losses(logits, hand_key, obj_key, assign):
@@ -334,17 +339,18 @@ def arctic_criterion(
         loss_dict[key] = val
         total = total + weights.get(name, 0.0) * val
 
-    for lvl in range(L):
-        layer = {k: None if v is None else v[lvl] for k, v in st.items()}
-        det = det_losses(layer["pred_logits"], layer["pred_hand_key"], layer["pred_obj_key"],
-                         assign_all[lvl])
-        small = compute_small_loss(select_queries(layer), targets, mano_r, mano_l, obj_bank,
-                                   img_res)
-        # the JAX package adds the small losses in its pytree (sorted) order
-        named = list(zip(det_names, det))
-        named += [(k, small[k]) for k in sorted(small)]
-        for name, val in named:
-            add(name if lvl == L - 1 else f"{name}_{lvl}", name, val)
+    with span("layer_losses"):
+        for lvl in range(L):
+            layer = {k: None if v is None else v[lvl] for k, v in st.items()}
+            det = det_losses(layer["pred_logits"], layer["pred_hand_key"],
+                             layer["pred_obj_key"], assign_all[lvl])
+            small = compute_small_loss(select_queries(layer), targets, mano_r, mano_l, obj_bank,
+                                       img_res)
+            # the JAX package adds the small losses in its pytree (sorted) order
+            named = list(zip(det_names, det))
+            named += [(k, small[k]) for k in sorted(small)]
+            for name, val in named:
+                add(name if lvl == L - 1 else f"{name}_{lvl}", name, val)
 
     if "dn_outputs" in outputs:
         dn = outputs["dn_outputs"]
@@ -355,16 +361,18 @@ def arctic_criterion(
     if outputs.get("temporal_selected") is not None:
         # the temporal head's refined last-layer parameters: one more small
         # loss pass, each term weighted like the last layer's
-        small_t = compute_small_loss(outputs["temporal_selected"], targets, mano_r, mano_l,
-                                     obj_bank, img_res)
+        with span("layer_losses"):
+            small_t = compute_small_loss(outputs["temporal_selected"], targets, mano_r, mano_l,
+                                         obj_bank, img_res)
         for name, val in small_t.items():
             add(f"{name}/temporal", name, val)
 
     if "interm_outputs" in outputs:
         io = outputs["interm_outputs"]
-        assign_i = arctic_match(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
-                                tgt_labels, tgt_kps, tgt_valid,
-                                cost_class=cost_class, cost_keypoint=cost_keypoint)
+        with span("match"):
+            assign_i = arctic_match(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
+                                    tgt_labels, tgt_kps, tgt_valid,
+                                    cost_class=cost_class, cost_keypoint=cost_keypoint)
         det_i = det_losses(io["pred_logits"], io["pred_hand_key"], io["pred_obj_key"],
                            assign_i)
         for name, val in zip(det_names, det_i):
