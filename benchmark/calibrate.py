@@ -20,7 +20,7 @@ compared numbers (`check.py`) of
     second time on the same seed, against its first run (what the
     program's own nondeterminism, the backward's atomics, reads),
   - always: the set-up batches against the plain reading of the root
-    (`check.data_numbers`).
+    (the family's `data_numbers`).
 One JSON line a seed on standard output, and appended to `--out`.
 """
 
@@ -66,8 +66,10 @@ def program_run(cell, seed, device, batches, reference, fault=None):
 
 def reference_side(cell, seed, device, batches):
     if cell.traffic["loop"] == "train":
-        return run.reference_train(cell, seed, device, batches)
-    return run.reference_eval(cell, seed, device, batches, list(range(len(batches))))
+        return cell.family.reference_train(cell.config, run.world, device, seed, batches,
+                                           cell.traffic["check_steps"])
+    return cell.family.reference_eval(cell.config, run.world, device, seed, batches,
+                                      list(range(len(batches))))
 
 
 def control_numbers(cell, seed, device, batches, reference) -> dict:
@@ -118,7 +120,7 @@ def calibrate_seed(cell, seed, device, path, args, twice: bool) -> dict:
     c, t = cell.config, cell.traffic
     batches = run.make_traffic(cell, seed, path)
     line = {"workload": cell.name, "seed": seed,
-            "data": check.data_numbers(batches, path, t["split"], c["img_res"], seed)}
+            "data": cell.family.data_numbers(batches, path, c, t, seed)}
     reference = reference_side(cell, seed, device, batches)
     run.free(device)
     line["program"], first = program_run(cell, seed, device, batches, reference)
@@ -132,8 +134,8 @@ def calibrate_seed(cell, seed, device, path, args, twice: bool) -> dict:
     line["faults"] = {}
     for fault in args.faults:
         if fault == "shifted_images":
-            line["faults"][fault] = check.data_numbers(run.shifted(batches), path, t["split"],
-                                                       c["img_res"], seed)
+            line["faults"][fault] = cell.family.data_numbers(run.shifted(batches), path, c, t,
+                                                             seed)
         else:
             line["faults"][fault] = program_numbers(cell, seed, device, batches, reference,
                                                     fault)

@@ -38,14 +38,14 @@ def idle(r, loop: str):
 
 def msda_roofline(r, loop: str):
     """Per cent: the least time of the traced steps' MSDA calls, counted
-    from the configuration, over the device time of the kernels named
-    `msda_*kernel`."""
+    from the configuration by its family's `msda_calls`, over the device
+    time of the kernels named `msda_*kernel`."""
     if r.loop != loop or r.trace is None:
         return None
     t = r.trace.kernel_time(MSDA)
     if t <= 0:
         return None
-    return 100.0 * roofline.msda_bound_s(r.config, r.batch, loop) * r.trace.steps / t
+    return 100.0 * roofline.msda_bound_s(r.config, r.batch, loop, r.family) * r.trace.steps / t
 
 
 def mfu(r, loop: str):

@@ -38,15 +38,21 @@ def spatial_shapes(config: dict) -> List[Tuple[int, int]]:
     return shapes
 
 
+def msda_call_ops(B: int, Lq: int, L: int, M: int, D: int, P: int, backward: bool) -> int:
+    """Operations of one MSDA call: per sample point 4 for its pixel
+    coordinates, per corner (all four counted: the bound is the bytes' at
+    these shapes either way) 5 + 2 D forward, 12 + 4 D backward."""
+    points = B * Lq * M * L * P
+    return points * 4 + points * 4 * ((12 + 4 * D) if backward else (5 + 2 * D))
+
+
 def msda_call_bound_s(B: int, Lq: int, shapes, M: int, D: int, P: int, dtype: str,
                       backward: bool) -> float:
     """Least seconds of one MSDA call (forward, or backward with
     `backward`): value (B, S, M, D), locations (B, Lq, M, L, P, 2) float32,
     attention (B, Lq, M, L, P) and the output (B, Lq, M*D) once each; the
     backward reads the incoming gradient too and writes dvalue, dloc and
-    dattn. Operations: per sample point 4 for its pixel coordinates, per
-    corner (all four counted: the bound is the bytes' at these shapes either
-    way) 5 + 2 D forward, 12 + 4 D backward."""
+    dattn. Operations: `msda_call_ops`."""
     S = sum(h * w for h, w in shapes)
     L = len(shapes)
     e = TYPE_BYTES[dtype]
@@ -54,65 +60,51 @@ def msda_call_bound_s(B: int, Lq: int, shapes, M: int, D: int, P: int, dtype: st
     loc = B * Lq * M * L * P * 2 * 4
     attn = B * Lq * M * L * P * e
     out = B * Lq * M * D * e
-    points = B * Lq * M * L * P
     if backward:
         nbytes = value + loc + attn + out + value + loc + attn
-        ops = points * 4 + points * 4 * (12 + 4 * D)
     else:
         nbytes = value + loc + attn + out
-        ops = points * 4 + points * 4 * (5 + 2 * D)
+    ops = msda_call_ops(B, Lq, L, M, D, P, backward)
     peak = PEAK_FLOPS[(dtype, False)]
     return max(nbytes / HBM_BYTES_PER_S, ops / peak)
 
 
-def msda_bound_s(config: dict, batch: int, loop: str) -> float:
-    """Least seconds of the MSDA calls of one step (`loop` "train": the
-    encoder's and the decoder's forwards and their backwards) or one eval
-    batch (the forwards), counted from the configuration."""
+def msda_bound_s(config: dict, batch: int, loop: str, family) -> float:
+    """Least seconds of the MSDA calls of one step (`loop` "train") or one
+    eval batch, as the configuration's family module lists them
+    (`msda_calls`)."""
     m = config["model"]
     shapes = spatial_shapes(config)
-    S = sum(h * w for h, w in shapes)
     M, D = m["n_heads"], m["d_model"] // m["n_heads"]
     dt = config["compute_dtype"]
     total = 0.0
-    for layers, Lq, P in ((m["num_encoder_layers"], S, m["enc_n_points"]),
-                          (m["num_decoder_layers"], m["num_queries"], m["dec_n_points"])):
-        total += layers * msda_call_bound_s(batch, Lq, shapes, M, D, P, dt, False)
-        if loop == "train":
-            total += layers * msda_call_bound_s(batch, Lq, shapes, M, D, P, dt, True)
+    for layers, Lq, P, backward in family.msda_calls(config, batch, loop):
+        total += layers * msda_call_bound_s(batch, Lq, shapes, M, D, P, dt, backward)
     return total
 
 
-def msda_flops(config: dict, batch: int, loop: str) -> float:
+def msda_flops(config: dict, batch: int, loop: str, family) -> float:
     """The MSDA operations of one step or batch (the bound's count)."""
     m = config["model"]
-    shapes = spatial_shapes(config)
-    S, L = sum(h * w for h, w in shapes), len(shapes)
+    L = len(spatial_shapes(config))
     M, D = m["n_heads"], m["d_model"] // m["n_heads"]
-    total = 0
-    for layers, Lq, P in ((m["num_encoder_layers"], S, m["enc_n_points"]),
-                          (m["num_decoder_layers"], m["num_queries"], m["dec_n_points"])):
-        points = batch * Lq * M * L * P
-        total += layers * (points * 4 + points * 4 * (5 + 2 * D))
-        if loop == "train":
-            total += layers * (points * 4 + points * 4 * (12 + 4 * D))
-    return float(total)
+    return float(sum(layers * msda_call_ops(batch, Lq, L, M, D, P, backward)
+                     for layers, Lq, P, backward in family.msda_calls(config, batch, loop)))
 
 
-def count_flops(config: dict) -> dict:
+def count_flops(config: dict, family) -> dict:
     """{"train", "eval"}: model FLOPs of one frame. The matrix products and
-    convolutions of the plain reference's forward (and, for "train", its
-    backward: the gradient of every parameter, nothing recomputed) as
+    convolutions of the family's plain reference (`flops_model`): its
+    forward (and, for "train", its backward: the gradient of every
+    parameter that an output reaches, nothing recomputed) as
     `torch.utils.flop_counter` counts them at batch 1 on the meta device,
     plus the MSDA calls' operations by `msda_flops`."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from .reference.model import UVHandDETR
-
     res = config["img_res"]
     out = {}
     for loop in ("eval", "train"):
-        model = UVHandDETR(backbone=config["backbone"], device="meta", **model_kwargs(config))
+        model = family.flops_model(config, "meta")
         images = torch.zeros(1, res, res, 3, device="meta")
         counter = FlopCounterMode(display=False)
         with counter:
@@ -120,19 +112,21 @@ def count_flops(config: dict) -> dict:
                 # dropout and the feature mask are elementwise and draw from
                 # a generator, which the meta device has not: the products
                 # are those of the eval-mode forward
-                outputs = model(images)
-                loss = sum(v.sum() for part in ("stacked", "interm_outputs")
-                           for v in outputs[part].values())
+                loss = sum(v.sum() for v in tensors(model(images)))
                 loss.backward()
             else:
                 with torch.no_grad():
                     model(images)
-        out[loop] = float(counter.get_total_flops()) + msda_flops(config, 1, loop)
+        out[loop] = float(counter.get_total_flops()) + msda_flops(config, 1, loop, family)
     return out
 
 
-def model_kwargs(config: dict) -> dict:
-    m = config["model"]
-    return {k: m[k] for k in ("num_queries", "d_model", "n_heads", "num_encoder_layers",
-                              "num_decoder_layers", "dim_feedforward", "num_feature_levels",
-                              "dec_n_points", "enc_n_points", "dropout", "feature_mask_ratio")}
+def tensors(outputs) -> list:
+    """Every tensor of a model's outputs (nested dicts, lists, tuples)."""
+    if isinstance(outputs, torch.Tensor):
+        return [outputs]
+    if isinstance(outputs, dict):
+        outputs = list(outputs.values())
+    if isinstance(outputs, (list, tuple)):
+        return [t for o in outputs for t in tensors(o)]
+    return []

@@ -2,15 +2,23 @@
 
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-From the root of a checkout. One run of one cell of `BENCHMARK.json`:
+From the root of a checkout. One run of one cell of `BENCHMARK.json`,
+whose pieces `spec.py` finds by name: `configs/`, `traffic/`,
+`workloads/`, `metrics/`, and `families/`, the module of the
+configuration's model family (`families/__init__.py`: the port's model
+and step, the plain reference's, the MSDA calls and the model the FLOPs
+are counted on). A configuration of another family brings its module, its
+own plain reference (under `reference/` or `families/`, importing nothing
+of the port), its configuration, traffic and cell, as new files.
 
 1. set-up (`setup_s`, from the process's start to the first timed step):
    the synthetic MANO layers and object bank, a synthetic ARCTIC root
    under TMPDIR made from the seed (`traffic.make_root`), the cell's
    distinct batches read from it by the port's data path, the port's model
-   with weights drawn on the card from the seed (`weights.draw`), its
-   train step (`engine.make_fused_train_step`, AdamW) or eval step
-   (`engine.make_eval_step`), and the warm-up: a train cell's first
+   with weights drawn on the card from the seed (`weights.draw`) and its
+   step, both of the family's `port` (arctic_sf: the fused train step,
+   `engine.make_fused_train_step` with AdamW, or the eval step,
+   `engine.make_eval_step`), and the warm-up: a train cell's first
    `check_steps` steps, which the correctness check follows, an eval
    cell's first batches. The MSDA kernels build once per checkout into
    `build/kernels/`; the line's `kernels_built` says whether this run
@@ -22,8 +30,8 @@ From the root of a checkout. One run of one cell of `BENCHMARK.json`:
    all the window's frames over all its seconds;
 3. with `--trace 1`, a few more steps under torch.profiler, twice
    (`trace.py`), which the per-layer readers read;
-4. the check (`check.py`): the program's state freed, the plain reference
-   (`reference/`) on the same weights and inputs, and the set-up's
+4. the check (`check.py`): the program's state freed, the family's plain
+   reference (`reference/`) on the same weights and inputs, and the set-up's
    batches against a plain reading of the synthetic root, which is
    removed only then;
 5. the result: the compared numbers beside their limits as the last lines
@@ -54,7 +62,7 @@ from typing import Dict, List, Optional  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from . import check, spec, traffic, weights  # noqa: E402
+from . import check, spec, weights  # noqa: E402
 from .reference import assets  # noqa: E402
 
 #: top-level module names that may not be loaded in a run
@@ -81,6 +89,9 @@ class Readings:
     timing: Dict[str, List[float]] = field(default_factory=dict)
     peak_alloc_window: int = 0
     trace: Optional[object] = None
+    #: the configuration's family module (`msda_roofline` reads its calls;
+    #: a reader of spans or rates needs none)
+    family: Optional[object] = None
 
     @property
     def frames(self) -> int:
@@ -110,33 +121,10 @@ def world(mano_cls, bank_cls, device):
             bank_cls(**assets.bank_fields(assets.synthetic_object_bank(), device)))
 
 
-def port_model(config: dict, device):
-    """The port's model of the configuration, in eval mode, its weights
-    the seed's (loaded by the caller)."""
-    from uvhand_tpu_torch.models.detr import UVHandDETR
-
-    m = config["model"]
-    return UVHandDETR(num_queries=m["num_queries"], d_model=m["d_model"], n_heads=m["n_heads"],
-                      num_encoder_layers=m["num_encoder_layers"],
-                      num_decoder_layers=m["num_decoder_layers"],
-                      dim_feedforward=m["dim_feedforward"],
-                      num_feature_levels=m["num_feature_levels"],
-                      dec_n_points=m["dec_n_points"], enc_n_points=m["enc_n_points"],
-                      dropout=m["dropout"], feature_mask_ratio=m["feature_mask_ratio"],
-                      two_stage=config["two_stage"], with_box_refine=config["with_box_refine"],
-                      compute_dtype=getattr(torch, config["compute_dtype"]),
-                      backbone=config["backbone"], generator=torch.Generator().manual_seed(0),
-                      device=device)
-
-
 def set_precision(config: dict, device) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = bool(config["tf32"])
         torch.backends.cudnn.allow_tf32 = bool(config["tf32"])
-
-
-def dropout_seed(seed: int) -> int:
-    return seed + 1
 
 
 def cycled(batches, t0: float, seconds: float):
@@ -198,34 +186,14 @@ class Program:
     """The port's side of a run: its model, step, and what set-up read of it."""
 
     def __init__(self, cell: spec.Cell, seed: int, device, batches, fault=None):
-        from uvhand_tpu_torch import engine
-        from uvhand_tpu_torch.geometry.mano import MANOModel
-        from uvhand_tpu_torch.geometry.objects import ObjectBank
-        from uvhand_tpu_torch.train.state import create_optimizer
-
         self.cell, self.seed, self.device = cell, seed, device
-        c = cell.config
         self.loop = cell.traffic["loop"]
-        self.world = world(MANOModel, ObjectBank, device)
-        self.model = port_model(c, device)
-        weights.load(self.model, weights.draw(weights.shapes(self.model), c, seed, device))
-        img_res = float(c["img_res"])
-        if self.loop == "train":
-            o = c["optimizer"]
-            self.optimizer = create_optimizer(self.model, lr=o["lr"], lr_backbone=o["lr_backbone"],
-                                              lr_linear_proj_mult=o["lr_linear_proj_mult"],
-                                              weight_decay=o["weight_decay"])
-            if fault == "group_rate":
-                for group in self.optimizer.param_groups:
-                    if group["name"] == "linear_proj":
-                        group["lr"] = o["lr"]
-            step = engine.make_fused_train_step(
-                self.model, *self.world, self.optimizer, img_res=img_res,
-                clip_max_norm=o["clip_max_norm"],
-                generator=torch.Generator(device=device).manual_seed(dropout_seed(seed)),
-                device=device)
-        else:
-            step = engine.make_eval_step(self.model, *self.world, img_res=img_res, device=device)
+        self.model, step, self.optimizer = cell.family.port(cell.config, world, device, seed,
+                                                            self.loop)
+        if fault == "group_rate" and self.optimizer is not None:
+            for group in self.optimizer.param_groups:
+                if group.get("name") == "linear_proj":
+                    group["lr"] = cell.config["optimizer"]["lr"]
         self.step = with_fault(step, fault, list(self.model.parameters()), self.loop)
         self.batches = batches
 
@@ -292,70 +260,13 @@ class Program:
         return trace.traced(run, steps, engine.TRAIN_STAGES, self.device)
 
 
-def reference_model(cell: spec.Cell, seed: int, device):
-    """(the reference's model with the seed's weights, its MANO layers and
-    object bank, the weights)."""
-    from .reference.geometry import MANOModel, ObjectBank
-    from .reference.model import UVHandDETR
-    from .roofline import model_kwargs
-
-    c = cell.config
-    model = UVHandDETR(backbone=c["backbone"], device=device, **model_kwargs(c))
-    start = weights.draw(weights.shapes(model), c, seed, device)
-    weights.load(model, start)
-    return model, world(MANOModel, ObjectBank, device), start
-
-
-def device_batch(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in batch.items()}
-
-
-def reference_train(cell: spec.Cell, seed: int, device, batches) -> dict:
-    """The reference's first `check_steps` steps from the same weights,
-    inputs and dropout draws."""
-    from .reference import steps as ref_steps
-
-    c, o = cell.config, cell.config["optimizer"]
-    model, world_, start = reference_model(cell, seed, device)
-    rates = ref_steps.param_rates(model, o["lr"], o["lr_backbone"], o["lr_linear_proj_mult"])
-    opt = ref_steps.AdamW(model.named_parameters(), rates, o["weight_decay"])
-    gen = torch.Generator(device=device).manual_seed(dropout_seed(seed))
-    losses, grad, update1 = [], None, None
-    for k in range(cell.traffic["check_steps"]):
-        loss, grads, _ = ref_steps.train_step(model, *world_, opt, device_batch(batches[k], device),
-                                              gen, float(c["img_res"]), o["clip_max_norm"])
-        losses.append(loss)
-        if k == 0:
-            grad = check.leaf_norms(grads)
-            update1 = check.leaf_norms({n: p.detach() - start[n]
-                                        for n, p in model.named_parameters()})
-        del grads
-    update = check.leaf_norms({n: p.detach() - start[n] for n, p in model.named_parameters()})
-    return {"losses": losses, "grad": grad, "update1": update1, "update": update}
-
-
-def reference_eval(cell: spec.Cell, seed: int, device, batches, ids) -> Dict[int, dict]:
-    """The reference's rows of the set-up batches `ids`."""
-    from .reference import steps as ref_steps
-
-    model, world_, _ = reference_model(cell, seed, device)
-    out = {}
-    for i in sorted(set(ids)):
-        rows = ref_steps.eval_step(model, *world_, device_batch(batches[i], device),
-                                   float(cell.config["img_res"]))
-        out[i] = {k: v.cpu().numpy() for k, v in rows.items()}
-    return out
-
-
 def make_traffic(cell: spec.Cell, seed: int, path: str, fault: Optional[str] = None) -> list:
-    """The cell's set-up batches: a synthetic root written under `path` (a
-    directory under TMPDIR, which the caller removes once the check has
-    read it), read by the port's data path."""
+    """The cell's set-up batches, of the family's `make_batches` and
+    `check_batches`, from inputs written under `path` (a directory under
+    TMPDIR, which the caller removes once the check has read it)."""
     c, t = cell.config, cell.traffic
-    bank_arrays = assets.synthetic_object_bank()
-    traffic.make_root(path, t, bank_arrays, seed)
-    batches = traffic.make_batches(path, t, bank_arrays, c["img_res"], seed)
-    traffic.check_batches(batches, t, c["img_res"])
+    batches = cell.family.make_batches(c, t, seed, path)
+    cell.family.check_batches(batches, t, c)
     return shifted(batches) if fault == "shifted_images" else batches
 
 
@@ -423,7 +334,8 @@ def _run_cell(args, device, root: str, t_start: float, fault: Optional[str], pat
     peak_setup = peak_reserved(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    readings = Readings(prog.loop, t["batch"], c, time.perf_counter() - t_start)
+    readings = Readings(prog.loop, t["batch"], c, time.perf_counter() - t_start,
+                        family=cell.family)
     rows = prog.window(args.seconds, readings)
     if device.type == "cuda":
         readings.peak_alloc_window = torch.cuda.max_memory_allocated(device)
@@ -438,12 +350,14 @@ def _run_cell(args, device, root: str, t_start: float, fault: Optional[str], pat
     del prog, rows
     free(device)
     if readings.loop == "train":
-        numbers = check.train_numbers(first, reference_train(cell, args.seed, device, batches))
+        ref = cell.family.reference_train(c, world, device, args.seed, batches,
+                                          t["check_steps"])
+        numbers = check.train_numbers(first, ref)
     else:
         ids = [i % t["batches"] for i in range(len(program_rows))]
-        ref = reference_eval(cell, args.seed, device, batches, ids)
+        ref = cell.family.reference_eval(c, world, device, args.seed, batches, ids)
         numbers = check.eval_numbers(program_rows, ids, ref)
-    numbers.update(check.data_numbers(batches, path, t["split"], c["img_res"], args.seed))
+    numbers.update(cell.family.data_numbers(batches, path, c, t, args.seed))
     correct, checks = check.judge(numbers, cell.limits)
     print(f"[check] the reference took {time.perf_counter() - stamp_check:.2f} s", file=sys.stderr)
 

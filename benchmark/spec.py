@@ -6,16 +6,25 @@ own under `benchmark/`:
   - a cell: `workloads/<cell>.json` (the limits its correctness check
     compares against),
   - a configuration: `configs/<config>.json` (the model as it is run, the
-    rule that draws its weights, its FLOPs a frame),
+    rule that draws its weights, its FLOPs a frame, and its `family`:
+    `arctic_sf` where the key is absent),
+  - a model family: `families/<family>.py` (the port's model and step, the
+    plain reference's, the MSDA calls a step makes and the model that the
+    FLOPs are counted on; the interface is `families/__init__.py`'s),
   - a traffic mix: `traffic/<traffic>.json` (the loop, the batch, the
     split, the synthetic root),
   - a metric: `metrics/<metric>.py`, a reader with `read(readings)`.
 A later cell, configuration, mix or metric is a new file and a new entry,
-never an edit here.
+never an edit here. So is a configuration of another model family: it
+brings its module `families/<family>.py`, its own plain reference (under
+`reference/` or `families/`, importing nothing of the port), its
+configuration, traffic and cell files, and the entries that name them.
 """
 
 from __future__ import annotations
 
+import functools
+import glob
 import importlib.util
 import json
 import os
@@ -24,6 +33,8 @@ from typing import Callable, Dict, List, Optional
 
 #: the checkout's root (the parent of this package)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the family of a configuration that names none
+DEFAULT_FAMILY = "arctic_sf"
 
 
 def _json(path: str) -> dict:
@@ -42,6 +53,12 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[dict] = field(default_factory=list)
     per_layer: List[dict] = field(default_factory=list)
+    root: str = ROOT
+
+    @property
+    def family(self):
+        """The module of the configuration's family."""
+        return family(self.config, self.root)
 
 
 def load_cell(name: str, root: str = ROOT) -> Cell:
@@ -71,7 +88,32 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     e2e = [m for m in bench["end_to_end"] if "workloads" not in m or name in m["workloads"]]
     e2e_names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if reports(m, e2e_names)]
-    return Cell(name, entry, config, traffic, dict(cell_file.get("limits", {})), e2e, per_layer)
+    family(config, root)  # an unknown family fails here, before any set-up
+    return Cell(name, entry, config, traffic, dict(cell_file.get("limits", {})), e2e, per_layer,
+                root)
+
+
+def family(config: dict, root: str = ROOT):
+    """The module `benchmark/families/<family>.py` of `root` that the
+    configuration names (`arctic_sf` where it names none). Raises
+    ValueError for an unknown family, naming those there are."""
+    name = config.get("family", DEFAULT_FAMILY)
+    here = os.path.join(root, "benchmark", "families")
+    path = os.path.join(here, f"{name}.py")
+    if not os.path.isfile(path):
+        known = sorted(os.path.splitext(os.path.basename(p))[0]
+                       for p in glob.glob(os.path.join(here, "*.py")))
+        raise ValueError(f"no model family {name!r}; families: "
+                         f"{[k for k in known if k != '__init__']}")
+    return _load(path, "benchmark_family_" + name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: str, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def reader(metric: str, root: str = ROOT) -> Callable:

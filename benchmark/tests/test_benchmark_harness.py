@@ -1,16 +1,19 @@
-"""The harness on the CPU: a cell added by files alone runs, the result
-line's keys, the refusal without a card, the window's rate and the p95,
-and the planted faults that the check must catch."""
+"""The harness on the CPU: a cell added by files alone runs, and so does a
+configuration of a model family added by files alone; the result line's
+keys, the refusal without a card, the window's rate and the p95, and the
+planted faults that the check must catch."""
 
 from __future__ import annotations
 
 import json
+import os
+import textwrap
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark import readers, run, spec
+from benchmark import readers, roofline, run, spec, trace
 from benchmark.tests import tiny_cells
 
 CPU = torch.device("cpu")
@@ -56,6 +59,52 @@ def test_traced_line_has_the_breakdown_and_the_per_layer_metrics(roots, loop):
 def test_a_fault_under_the_timed_path_is_not_correct(roots, loop, fault):
     result, _, _ = run.run_cell(tiny_cells.args(loop), CPU, root=roots[loop], fault=fault)
     assert result["correct"] is False, result["checks"]
+
+
+#: a family written into a copy of the benchmark: arctic_sf under another
+#: name, with MSDA calls of its own
+WRAPPED = textwrap.dedent("""
+    from benchmark.families.arctic_sf import (check_batches, data_numbers, flops_model,
+                                              make_batches, port, reference_eval,
+                                              reference_train)
+
+
+    def msda_calls(config, batch, loop):
+        return [(3, 11, 2, False)] + ([(3, 11, 2, True)] if loop == "train" else [])
+""")
+
+
+@pytest.mark.parametrize("loop", sorted(E2E))
+def test_a_family_added_by_files_runs(tmp_path, loop):
+    """The configuration names the family; the run takes its model, steps
+    and reference from that module, and `msda_roofline` its calls."""
+    root = tiny_cells.make(tmp_path, loop, family="wrapped")
+    with open(os.path.join(root, "benchmark", "families", "wrapped.py"), "w") as f:
+        f.write(WRAPPED)
+    result, _, readings = run.run_cell(tiny_cells.args(loop, family="wrapped"), CPU, root=root)
+    assert result["correct"], result["checks"]
+    assert sorted(result["metrics"]) == E2E[loop]
+    family = spec.load_cell(f"tiny_wrapped.{loop}", root).family
+    assert readings.family is family
+    assert os.path.dirname(family.__file__) == os.path.join(root, "benchmark", "families")
+
+    # the CPU trace has no MSDA kernels: one traced step with 2 ms of them
+    readings.trace = trace.Trace(steps=1, window_s=1.0, busy_s=0.5,
+                                 kernels={"msda_fwd_staged_kernel": (1, 0.002)})
+    c, b = readings.config, readings.batch
+    read = spec.reader(f"msda_roofline.{loop}", root)(readings)
+    own = 100.0 * roofline.msda_bound_s(c, b, loop, family) / 0.002
+    arctic = 100.0 * roofline.msda_bound_s(c, b, loop, spec.family({})) / 0.002
+    assert read == own and own != arctic
+    assert family.msda_calls(c, b, loop) != spec.family({}).msda_calls(c, b, loop)
+
+
+def test_an_unknown_family_is_refused_by_name(tmp_path):
+    root = tiny_cells.make(tmp_path, "eval", family="no_such_family")
+    with pytest.raises(ValueError, match=r"no_such_family.*'arctic_sf'"):
+        spec.load_cell("tiny_no_such_family.eval", root)
+    with pytest.raises(ValueError, match="arctic_sf"):
+        spec.family({"family": "no_such_family"})
 
 
 def test_no_card_no_result(monkeypatch, capsys):

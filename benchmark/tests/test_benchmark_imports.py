@@ -1,4 +1,5 @@
-"""What a run loads: no JAX, no JAX package; the reference nothing of the port.
+"""What a run loads: no JAX, no JAX package; the reference nothing of the port;
+the harness the model of a family only through the family's module.
 
 Module names are compared by their top-level name, whole: the port's
 package (`uvhand_tpu_torch`) is not the JAX package (`uvhand_tpu`)."""
@@ -69,3 +70,24 @@ def test_no_reference_source_imports_the_port():
             else:
                 continue
             assert not tops & (JAX_NAMES | {"uvhand_tpu_torch"}), (path, tops)
+
+
+def imported_modules(path: str) -> set:
+    """The modules that the file at `path` imports, relative ones as
+    written (`.reference.model`)."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names |= {base} | {f"{base}.{a.name}".replace("..", ".") for a in node.names}
+    return names
+
+
+def test_the_harness_reaches_a_model_only_through_its_family():
+    banned = ("uvhand_tpu_torch.models", "reference.model", "reference.steps")
+    for name in ("run.py", "roofline.py", "readers.py", "calibrate.py"):
+        found = [m for m in imported_modules(os.path.join(spec.ROOT, "benchmark", name))
+                 if any(b in m for b in banned)]
+        assert not found, (name, found)
